@@ -12,7 +12,7 @@ Three measurements, one JSON line each:
    jitted device program over a large candidate batch: tape-compiled
    expressions -> vmapped diffusion scan. Reported as simulations/s and
    cell-steps/s. Host-side weave/sympy novelty is excluded on purpose — this
-   row isolates what the TPU rebuild moved on device.
+   row isolates what the rebuild moved on device.
 3. ``scenario suite`` — the reference's 4-scenario demo (AMS:641-665)
    end-to-end through the public API. Reference: 6.2 s patched, passing
    0/1, 2/8, 2/8, 1/4; ours must pass 1/1, 8/8, 8/8, 2/2 (the

@@ -1,24 +1,18 @@
-"""End-to-end 16384² single-chip solve (STATUS r3 gap 6).
+"""End-to-end 16384² single-device solve through the public API.
 
-The round-3 blocker: XLA's TPU backend caps ``lax.cond`` branches at 16 MB
-scoped VMEM, and the evolve loop's in-program QR refactorization exceeds it at
-16384² ("It should not be possible to run out of scoped vmem"), while the same
-QR compiles fine at program top level. ``SolverConfig.host_refactor`` moves the
-refactorization to a standalone host-driven program; this probe measures the
-full solve — evolve to the c64 floor + split-f64 refinement via the fused
-in-VMEM slice-residual kernel — at 16384² on the real chip.
+The operand is the headline family (bench.py's κ-controlled c64 system) at
+16384², made on the device and passed as a device-resident array. The
+shared factorization is rebuilt inside the evolve loop when the Ψ rung
+moves (``host_refactor`` auto, off on the GPU). The first call pays the
+compiles; the second is the measured time. The true residual of the
+returned x is checked on the device in native complex128.
 
-Memory layout (15.75 GB HBM): the bench operand is c64-exact, so refinement
-runs :func:`refine_split_c64exact` — no f64 planes ever exist, the fused
-residual kernel's digit triple is hi-only (A's own f32 planes), and the
-incremental matvec uses A itself. Resident set during refinement: A c64
-(2.1 GB) + Q,R (4.3) + hi triple (2.1) ≈ 8.7 GB. (The full-triple path OOMs
-here: planes 4.3 + triple 6.4 + separate c64 copy 2.1 + Q,R 4.3 ≈ 17 GB.)
-
-Run: python benchmarks/solve16k_probe.py [--n 16384]
+Prints one JSON line. Run: python benchmarks/solve16k_probe.py [--n 16384]
 """
 import argparse
 import json
+import pathlib
+import sys
 import time
 
 
@@ -30,120 +24,45 @@ def main():
     ap.add_argument("--tol", type=float, default=1e-8)
     args = ap.parse_args()
 
-    import functools
-
     import jax
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
-    import numpy as np
 
-    import pathlib
-    import sys
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import maus_tpu
+    from bench import _device_problem, device_info
     from maus_tpu.utils.compile_cache import enable as enable_compile_cache
 
-    # persistent compile cache: the remote helper is flaky at 16k shapes —
-    # bank each successful compile so a retry loop converges
     enable_compile_cache()
-    from bench import _device_problem
-    from maus_tpu.core.types import ProblemKnowledge, ProblemType, SolverConfig
-    from maus_tpu.ops.refine import (SplitComplex, fac_to_planes,
-                                     refine_split_c64exact)
-    from maus_tpu.solver import api as api_mod
-    from maus_tpu.solver import evolve as ev
+    A, b = jax.block_until_ready(
+        _device_problem(args.n, args.cond, jnp.complex64))
 
-    n, K, tol = args.n, args.cands, args.tol
-    dtype = jnp.complex64
-    eps = float(np.finfo(np.float32).eps)
-    floor = max(50 * eps, 2 * eps * args.cond)
-
-    cfg = SolverConfig(problem_type=ProblemType.SOLVE_LINEAR_SYSTEM,
-                       num_candidates=K, tol=tol, dtype=dtype,
-                       convergence_floor=floor, refine=True,
-                       max_refine_steps=60, host_refactor=True)
-    kn = ProblemKnowledge(shape=(n, n), cond_estimate=args.cond)
-    key = jax.random.PRNGKey(1)
-    max_iters = 50
-
-    print(f"[16k probe] generating N={n} kappa={args.cond:g} on device...",
-          flush=True)
-    A, b = _device_problem(n, args.cond, dtype)
-    jax.block_until_ready(A)
-
-    @jax.jit
-    def _widen_b(b_):
-        return SplitComplex(b_.real.astype(jnp.float64),
-                            b_.imag.astype(jnp.float64))
-
-    # carry0 is DONATED (argnum 3): donation must live on THIS top-level jit
-    # (annotations on the inner evolve_while are ignored under an outer
-    # trace) — without it the program holds input + loop + output copies of
-    # the 4.3 GB Q,R factors next to A and overflows the 16 GB chip
-    @functools.partial(jax.jit, donate_argnums=(3,))
-    def _evolve(A_, b_, key_, carry0):
-        carry, _ = ev.evolve_while(cfg, kn, A_, b_, key_, max_iters, 1,
-                                   carry0=carry0)
-        pop = carry.pop
-        best = jnp.argmin(jnp.where(jnp.isfinite(pop.residual), pop.residual,
-                                    jnp.inf))
-        return carry, pop.v[best]
-
-    @functools.partial(jax.jit, static_argnames=("steps",))
-    def _refine(A_, fac, b64_, x0, steps, tol_):
-        # c64-exact path: A's f64 widening IS A — no f64 planes, hi-only
-        # digit triple, incremental matvec on A itself (HBM: ~8.7 GB at 16k)
-        xs, rel = refine_split_c64exact(A_, fac, b64_, x0, steps=steps,
-                                        tol=tol_)
-        return xs, rel
-
-    def full_solve():
-        # init_carry in its OWN program: inlining the 16k QR into the
-        # while-loop program (whose 4.3 GB Q,R carry is double-buffered)
-        # pushes the program peak past HBM
-        carry0 = ev.init_carry(cfg, kn, A, key)
-        hosted = 0
-        while True:
-            carry, x0 = _evolve(A, b, key, carry0)
-            nxt = api_mod.resolve_refactor_carry(A, carry)
-            if nxt is None:
-                break
-            hosted += 1
-            carry0 = nxt
-        b64 = _widen_b(b)
-        # factors as f32 planes, complex originals released: a c64 jit
-        # argument is materialized twice by this backend (argument +
-        # in-program X64Split plane temps live across the IR loop) — with
-        # Q,R complex the refine program wants 16.04/15.75 GB (probed;
-        # ops/refine.FacPlanes)
-        facp = fac_to_planes(carry.fac)
-        for leaf in jax.tree.leaves(carry.fac):
-            leaf.delete()
-        xs, rel = _refine(A, facp, b64, x0, cfg.max_refine_steps,
-                          tol * 0.3)
-        return float(rel), int(carry.iteration), hosted
-
-    print("[16k probe] warmup (compiles)...", flush=True)
-    t0 = time.perf_counter()
-    rel, iters, hosted = full_solve()
-    print(f"[16k probe] warmup done in {time.perf_counter()-t0:.1f}s "
-          f"rel={rel:.2e} iters={iters} host_refactors={hosted}", flush=True)
+    def solve():
+        return maus_tpu.solve(A, b, tol=args.tol,
+                              num_candidates=args.cands)
 
     t0 = time.perf_counter()
-    rel, iters, hosted = full_solve()
+    solve()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = solve()
     elapsed = time.perf_counter() - t0
 
-    from bench import _measure_scipy_solve
-    t_solve = _measure_scipy_solve(1024, n)
-    ref_time = t_solve * K * max(iters, 1)
-    out = {"metric": f"time_to_tol({tol:g}) N={n} illcond(k={args.cond:g}) "
-                     f"pop={K} [achieved_rel={rel:.2e}"
-                     f"{'' if rel <= tol else ' MISS'}]",
-           "value": round(elapsed, 3), "unit": "s",
-           "vs_baseline": round(ref_time / elapsed, 1),
-           "iters": iters, "host_refactors": hosted,
-           "scipy_per_solve_modeled_s": round(t_solve, 2)}
-    print(json.dumps(out))
-    return 0 if rel <= tol else 1
+    @jax.jit
+    def rel_c128(A_, x_, b_):
+        with jax.default_matmul_precision("highest"):
+            b128 = b_.astype(jnp.complex128)
+            r = b128 - A_.astype(jnp.complex128) @ x_
+            return jnp.linalg.norm(r) / jnp.linalg.norm(b128)
+
+    rel = float(rel_c128(A, jnp.asarray(rep.best()[0], jnp.complex128), b))
+    print(json.dumps({
+        "metric": f"time_to_tol({args.tol:g}) N={args.n} "
+                  f"illcond(k={args.cond:g}) pop={args.cands}",
+        "value": elapsed, "unit": "s", "setup_s": setup_s,
+        "iterations": rep.iterations, "true_rel_c128": rel,
+        "device": device_info()}))
+    return 0 if rel <= args.tol else 1
 
 
 if __name__ == "__main__":

@@ -43,12 +43,11 @@ def main():
     with jax.default_matmul_precision("highest"):
         f = jax.jit(lambda A, lams, B: batched_shifted_solve(
             A, lams, stuck, 1e-12, 1.0, B)[0])
-    out = f(A, lams, B)
-    _ = float(out[0, 0].real)                      # fence (see bench.py)
+    jax.block_until_ready(f(A, lams, B))           # compile + warm
     t0 = time.perf_counter()
     for _i in range(args.reps):
         out = f(A, lams, B)
-    _ = float(out[0, 0].real)
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / args.reps
     solves_per_sec = K / dt
 

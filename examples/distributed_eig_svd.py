@@ -5,8 +5,8 @@ Run on any host with 8 visible devices (real chips or virtual):
 
     JAX_PLATFORMS=cpu python examples/distributed_eig_svd.py   # 8 virtual CPUs
 
-The same code runs unchanged on a TPU slice — only `make_mesh` arguments
-change. All three problem classes have distributed paths (linear →
+The same code runs unchanged on a multi-GPU host
+(MAUS_EXAMPLE_BACKEND=native) — only `make_mesh` arguments change. All three problem classes have distributed paths (linear →
 ``maus_tpu.solve(A, b, mesh=)`` / ``solve_distributed``; eig and SVD below).
 """
 import os
@@ -17,22 +17,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if os.environ.get("MAUS_EXAMPLE_BACKEND") != "native":
-    # default: 8 virtual CPU devices, switched BEFORE any backend touch —
-    # probing a pre-registered accelerator backend first blocks indefinitely
-    # when its transport is down. Set MAUS_EXAMPLE_BACKEND=native on a real
-    # multi-chip slice to run unchanged there.
+    # default: 8 virtual CPU devices, switched before any backend touch.
+    # Set MAUS_EXAMPLE_BACKEND=native on a multi-GPU host to run there.
     import jax.extend.backend as _jeb
 
     _jeb.clear_backends()
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
 
-if jax.default_backend() == "cpu":
-    jax.config.update("jax_enable_x64", True)   # c128 demo precision on CPU
+jax.config.update("jax_enable_x64", True)   # c128 on CPU, f64 planes on GPU
 
 import numpy as np
 
 import maus_tpu
+from maus_tpu.core import backend
 from maus_tpu.parallel import mesh as mesh_mod
 
 
@@ -40,9 +38,9 @@ def main():
     mesh = mesh_mod.make_mesh(replica=1, model=8)
     print(f"mesh: {dict(mesh.shape)} over {len(jax.devices())} devices")
     rng = np.random.default_rng(0)
-    # achievable tolerance is set by the COMPUTE dtype (c64 on TPU even with
-    # x64 on; the distributed paths have no split-f64 finisher yet)
-    full_prec = jax.default_backend() == "cpu" and jax.config.jax_enable_x64
+    # achievable tolerance is set by the COMPUTE dtype (c64 on the GPU even
+    # with x64 on)
+    full_prec = backend.default_complex_dtype() == np.complex128
     tol = 1e-8 if full_prec else 1e-5
 
     # --- eig: column-sharded Hessenberg reduction + sharded shifted solves --

@@ -5,7 +5,8 @@ Run on any host with 8 visible devices (real chips or virtual):
 
     JAX_PLATFORMS=cpu python examples/multichip_solve.py      # 8 virtual CPUs
 
-The same code runs unchanged on a TPU slice — only `make_mesh` arguments change.
+The same code runs unchanged on a multi-GPU host — only `make_mesh` arguments
+change.
 """
 import os
 import sys

@@ -1,17 +1,17 @@
-"""maus_tpu — TPU-native rebuild of Kier73/Adaptive-Matrix-Solver (MAUS).
+"""maus_tpu — a JAX rebuild of Kier73/Adaptive-Matrix-Solver (MAUS) for
+accelerators (NVIDIA GPUs) and the CPU.
 
 A population-based meta-heuristic engine solving linear systems Ax=b, eigenvalue
-problems Ax=λx, and SVD, re-architected for TPU: the candidate population is one
-batched SoA pytree, Ψ-regularized shifted solves run as batched device kernels, and
-the whole evolution loop is jitted ``lax`` control flow. See SURVEY.md at the repo
-root for the reference analysis this build follows.
+problems Ax=λx, and SVD: the candidate population is one batched SoA pytree,
+Ψ-regularized shifted solves run as batched device operations, and the whole
+evolution loop is jitted ``lax`` control flow. See SURVEY.md at the repo root
+for the reference analysis this build follows.
 """
 import sys as _sys
 
 # JAX tracing is recursive; the evolve loop's nesting (jit → while_loop →
-# cond → Ψ-ladder while_loop → pallas_call → fori_loop) exceeds CPython's
-# default 1000-frame limit when the Pallas eig kernel traces inside the full
-# program.
+# cond → Ψ-ladder while_loop → fori_loop, with the finishers inside) can
+# exceed CPython's default 1000-frame limit while the full program traces.
 _sys.setrecursionlimit(max(_sys.getrecursionlimit(), 10_000))
 
 from .core.types import (CandidateStatus, ProblemKnowledge, ProblemType,

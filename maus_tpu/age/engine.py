@@ -147,12 +147,11 @@ class GenesisEngine:
             tapes = stack_tapes([compile_tree(g.tree, c.variables)
                                  for g in candidates])
             # Pad the population axis to a 32-wide bucket: the weave's
-            # candidate count varies per cycle, and on the remote TPU backend
-            # every distinct batch shape is a fresh 20-120 s compile — the
-            # un-bucketed reference workload (5 cycles x ~10-25 candidates)
-            # measured 1194 s on chip, ~all of it recompiles
-            # (benchmarks/results/r5/age.log). One bucket shape -> one
-            # compile; padded rows repeat the last tape and are sliced off.
+            # candidate count varies per cycle, and every distinct batch
+            # shape is a fresh compile — un-bucketed, the reference workload
+            # (5 cycles x ~10-25 candidates) spends nearly all its time
+            # recompiling. One bucket shape -> one compile; padded rows
+            # repeat the last tape and are sliced off.
             P = len(candidates)
             Pb = -(-P // 32) * 32
             if Pb > P:

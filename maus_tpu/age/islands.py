@@ -2,7 +2,7 @@
 evaluation, ring migration.
 
 The reference's AGE is a single sequential population (KAIROSAGE K:326-509 —
-no parallelism of any kind, SURVEY.md §2.3). On TPU the expensive stage (III:
+no parallelism of any kind, SURVEY.md §2.3). On the device the expensive stage (III:
 the T-step diffusion simulation per candidate, K:405-461) is already a batched
 device program (`age/diffusion.py`); this driver scales it across a device
 mesh the idiomatic way:

@@ -2,7 +2,7 @@
 
 Reference (KAIROSAGE): expression trees are Python object graphs evaluated
 recursively per grid cell per time step (K:156-249 node classes; the hot loop at
-K:28-47 does N·T·pop recursive evaluations in pure Python). TPU-native rebuild:
+K:28-47 does N·T·pop recursive evaluations in pure Python). Device rebuild:
 
 * the **tree** stays a host-side genome (generation/mutation is inherently
   host-side, K:346-382 semantics re-implemented with a seeded PRNG);

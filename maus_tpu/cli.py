@@ -184,7 +184,7 @@ def cmd_age(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="maus_tpu",
-                                 description="TPU-native MAUS solver")
+                                 description="MAUS population solver")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (with x64)")
     ap.add_argument("--cpu-devices", type=int, default=None, metavar="N",

@@ -48,7 +48,7 @@ def normal_like_batch(keys: jax.Array, shape: tuple, dtype) -> jax.Array:
             kr, ki = jax.random.split(kk)
             re = jax.random.normal(kr, shape, rdt)
             im = jax.random.normal(ki, shape, rdt)
-            # lax.complex avoids promotion through c128 (unsupported on TPU)
+            # lax.complex builds the target dtype directly (no c128 detour)
             return jax.lax.complex(re, im).astype(dtype) / jnp.sqrt(2).astype(rdt)
         return jax.random.normal(kk, shape, dtype)
     return jax.vmap(one)(keys)

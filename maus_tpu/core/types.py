@@ -1,4 +1,4 @@
-"""Core types for the TPU-native MAUS framework.
+"""Core types for the device-native MAUS framework.
 
 The reference (``/root/reference/Adaptive_Matrix_Solver_0.1.py``) keeps per-candidate
 state in Python objects (``SolutionCandidate.__init__``, AMS:107-143) and global state
@@ -122,7 +122,7 @@ class SolverConfig:
     convergence_floor: float = 0.0   # dtype precision floor for the convergence
                                      # test: candidates count as converged at
                                      # max(threshold, floor); the f64 refinement
-                                     # pass then closes the gap to tol (TPU c64
+                                     # pass then closes the gap to tol (c64
                                      # cannot reach 1e-8 relative residual alone)
     refine: bool = True              # mixed-precision iterative refinement of the
                                      # final/candidate solutions (f64 split residuals)
@@ -161,15 +161,13 @@ class SolverConfig:
                                      # rung changes, rebuild the shared
                                      # factorization in a SEPARATE host-driven
                                      # program instead of a lax.cond branch
-                                     # inside the evolve loop. XLA's TPU
-                                     # backend caps conditional branches at
-                                     # 16 MB scoped VMEM, which a ≥16384² QR
-                                     # inside lax.cond exceeds (the same QR
-                                     # compiles fine at program top level) —
-                                     # this mode trades a rare extra loop
-                                     # entry/exit (~30 ms RPC) for compiling
-                                     # at any N. None = auto (enabled on
-                                     # accelerators for N ≥ 12288).
+                                     # inside the evolve loop — for a backend
+                                     # whose compiler caps a branch's scratch
+                                     # memory below a large QR's needs. It
+                                     # trades a rare extra loop entry/exit
+                                     # for compiling at any N. None = auto
+                                     # (backend.needs_host_refactor: off on
+                                     # every supported platform).
 
     def __post_init__(self):
         object.__setattr__(self, "problem_type", ProblemType(self.problem_type))
@@ -283,7 +281,7 @@ class ProblemKnowledge:
     is_sparse_input: bool = False     # density < 0.25 in the reference (AMS:380)
     is_positive_definite: bool = False  # Hermitian + positive spectrum: unlocks
                                         # the Cholesky solve path (2× cheaper
-                                        # than LU, MXU-friendly)
+                                        # than LU)
     density: float = 1.0
     cond_estimate: float = 1.0
     is_singular: bool = False
@@ -333,7 +331,7 @@ def initial_strategy(cfg: SolverConfig, knowledge: ProblemKnowledge) -> Strategy
     f32 = jnp.float32
     stab = knowledge.stability
     # Deviation from the reference's regime table (AMS:407-416), which preferred
-    # GMRES for Fragile/Critical: on TPU a dense LU is backward-stable at any κ and
+    # GMRES for Fragile/Critical: a dense LU is backward-stable at any κ and
     # batches perfectly, while restarted GMRES stalls on dense ill-conditioned
     # operators. DIRECT is therefore the default everywhere; the iterative path is
     # reached via singularity or runtime failover (reference M3e, AMS:98-102).

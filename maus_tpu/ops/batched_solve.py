@@ -1,4 +1,4 @@
-"""Batched Ψ-regularized direct solves — the TPU equivalent of the reference's
+"""Batched Ψ-regularized direct solves — the device equivalent of the reference's
 ``InverseIterateSolver`` direct path (AMS:30-104; LAPACK ``sla.solve`` at AMS:59,
 SuperLU ``spla.spsolve`` at AMS:57).
 
@@ -25,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsla
 
+from ..core import backend
 from .regularize import apply_shift, psi_magnitude
 
 
@@ -36,12 +37,8 @@ class LUFactors(NamedTuple):
 
 
 def factor(H: jax.Array) -> LUFactors:
-    """LU-factorize a (possibly batched) square matrix.
-
-    On TPU this lowers to XLA's blocked LU; the Pallas kernel in
-    the parked from-scratch kernel (benchmarks/parked/pallas_lu.py) can be
-    swapped in here once it wins.
-    """
+    """LU-factorize a (possibly batched) square matrix (XLA's LU: LAPACK on
+    the CPU, cuSOLVER on the GPU)."""
     if H.ndim == 2:
         lu, piv = jsla.lu_factor(H)
     else:
@@ -171,8 +168,7 @@ class CholFactors(NamedTuple):
 
 
 def factor_chol(H: jax.Array) -> CholFactors:
-    """Cholesky of an HPD (possibly batched) matrix — half the flops of LU and a
-    cleaner MXU mapping; the Ψ shift keeps H safely positive definite."""
+    """Cholesky of an HPD (possibly batched) matrix — half the flops of LU; the Ψ shift keeps H safely positive definite."""
     if H.ndim == 2:
         L = jnp.linalg.cholesky(H)
     else:
@@ -202,18 +198,15 @@ def shared_factor_hpd(A: jax.Array, psi) -> CholFactors:
 class QRFactors(NamedTuple):
     """Householder-QR factorization bundle.
 
-    Measured on v5e at N=4096 c64: QR factorization is as fast as LU (49 vs
-    55 ms) but its solve path is 2× faster (one triangular substitution instead
-    of two — XLA's TPU triangular solve is the slow primitive) and its backward
-    error is ~100× better (3.0e-5 vs 2.7e-3 relative residual), which cuts the
-    mixed-precision refinement from tens of steps to a few. The shared linear
-    factorization therefore defaults to QR; LU remains for the batched
-    per-candidate eigen shifts.
+    The shared linear factorization defaults to QR: its solve path is one
+    triangular substitution instead of LU's two, and its backward error
+    keeps the mixed-precision refinement to a few steps. LU remains for the
+    batched per-candidate eigen shifts. Whether LU (half QR's flops) is the
+    better choice on the GPU is open (ROADMAP S4).
 
-    ``rinv``: optional explicit R⁻¹ (STATUS r2 gap 2 / VERDICT r2 #5). XLA's
-    TPU triangular solve runs ~7× above its bandwidth bound (2.8 ms vs 0.4 ms
-    at 4096² c64); with R⁻¹ built once by GEMM-rich blocked inversion
-    (:func:`invert_triangular`), every subsequent solve is two GEMVs. Forward
+    ``rinv``: optional explicit R⁻¹, built once by GEMM-rich blocked
+    inversion (:func:`invert_triangular`), so that every subsequent solve is
+    two GEMVs instead of a triangular substitution. Forward
     error of applying an explicit triangular inverse is O(ε·κ) — the same
     order as the forward error of a backward-stable substitution — and in
     iterative refinement the correction solve is a preconditioner, so the
@@ -232,7 +225,7 @@ def invert_triangular(R: jax.Array, block: int = 128) -> jax.Array:
         [R₁₁ R₁₂]⁻¹   [R₁₁⁻¹   −R₁₁⁻¹ R₁₂ R₂₂⁻¹]
         [ 0  R₂₂]   = [ 0            R₂₂⁻¹     ]
 
-    All off-diagonal work is GEMMs (MXU-shaped); only ``block``-sized diagonal
+    All off-diagonal work is GEMMs; only ``block``-sized diagonal
     tiles hit the slow triangular-solve primitive. One-time O(N³/3) — the
     point is to amortize it over many solve calls (evolve iterations,
     refinement steps, GMRES-IR matvecs)."""
@@ -252,15 +245,26 @@ def invert_triangular(R: jax.Array, block: int = 128) -> jax.Array:
     return jnp.concatenate([top, bot], axis=0)
 
 
+# The refinement's N²-sized working set, counted in buffers of the working
+# dtype (f64 planes, Q, R, R⁻¹ and workspace). R⁻¹ is built only while this
+# many fit device memory: on the 15.75 GB device the rule was first sized on
+# that admits N = 8192 and not 16384.
+_RINV_WORKSET_BUFFERS = 16
+
+
 def _want_rinv(H: jax.Array) -> bool:
     """Policy for building the explicit R⁻¹ with the shared factorization:
-    single operand, large enough that the triangular-solve overhead dominates
-    (the inversion is ~one QR panel's worth of GEMMs), on an accelerator
-    (CPU's triangular solves are already at bandwidth). Capped at 8192: past
-    that the extra N² c64 buffer competes with the refinement ladder for HBM
-    (16 GB chip: planes 4.3 + Q,R 4.3 + streamed panel ~3 GB at 16384²)."""
-    return H.ndim == 2 and 1024 <= H.shape[0] <= 8192 and \
-        jax.default_backend() != "cpu"
+    single operand, on an accelerator (the CPU's triangular solves are
+    already at bandwidth), N ≥ 1024 so the triangular-solve overhead
+    dominates (the inversion is ~one QR panel's worth of GEMMs), and small
+    enough that the extra N² buffer fits next to the refinement's working
+    set. The 1024 floor and the accelerator rule were chosen before the GPU
+    port and are not measured on the H100 (ROADMAP S7)."""
+    if H.ndim != 2 or H.shape[0] < 1024 or not backend.is_accelerator():
+        return False
+    n = H.shape[0]
+    need = _RINV_WORKSET_BUFFERS * n * n * jnp.dtype(H.dtype).itemsize
+    return need <= backend.device_memory_bytes()
 
 
 def factor_qr(H: jax.Array, with_rinv: bool | None = None) -> QRFactors:

@@ -1,31 +1,22 @@
 """From-scratch blocked LU with partial pivoting (right-looking, panel form).
 
-Why this exists (probed on this backend, rounds 2-4):
+No library code builds these factorizations (ROADMAP D6); the shared linear
+factorization is QR (``batched_solve.factor_qr``). Everything here contracts
+at ``Precision.HIGHEST``, so the backward error is f32-grade like any
+textbook partially-pivoted LU.
 
-* XLA:TPU's own LU is unusable here at scale: the batched complex
-  ``LuDecompositionBlock`` requests a ~16.55 MB scoped-VMEM pivot panel
-  (> the 16 MB cap) at N=4096 for ANY batch size, and even the unbatched
-  c64 LU breaches the cap at N=8192.  The shared linear factorization
-  therefore went to QR (``batched_solve.factor_qr``) — 2× the flops.
-* XLA LU's backward error on TPU measured ~2.7e-3 relative — bf16-grade,
-  i.e. its internal updates run at default matmul precision.  Everything
-  here contracts at ``Precision.HIGHEST``, so the backward error is
-  f32-grade like any textbook partially-pivoted LU.
-
-Structure (classic LAPACK ``getrf`` blocking, reimplemented TPU-first):
+Structure (classic LAPACK ``getrf`` blocking):
 the panel loop is unrolled in Python (static shapes per panel — no dynamic
 slice sizes), the within-panel column loop is a ``lax.fori_loop`` on the
 fixed-shape (N, b) panel, row swaps are recorded per panel and applied as ONE
 gather of the full matrix (the permutation simulation is an O(b) scan on an
 int32 index vector), and the trailing update is a single
-``L21 @ U12`` GEMM per panel — where all the flops live, MXU-shaped.
+``L21 @ U12`` GEMM per panel — where all the flops live.
 
 Complex LU costs (8/3)·N³ real FLOPs vs QR's (16/3)·N³: at equal achieved
-efficiency the factorization halves, and the GEMM-dominated structure here
-should beat XLA QR's measured ~46%-of-roofline (its sequential panel
-factorization is compiler-internal; ours is explicit and cheap).
+efficiency the factorization halves.
 
-Reference parity: this is the TPU equivalent of the reference's dense direct
+Reference parity: this is the device equivalent of the reference's dense direct
 path — LAPACK ``getrf/getrs`` behind ``sla.solve(assume_a='general')``
 (Adaptive_Matrix_Solver_0.1.py:59).
 """
@@ -82,8 +73,8 @@ def _factor_panel(panel: jax.Array, j0: int):
         P = jax.lax.dynamic_update_slice(P, row_p, (j, zero))
         P = jax.lax.dynamic_update_slice(P, row_j, (p, zero))
         swaps = swaps.at[c].set(p)
-        # scale the sub-diagonal of column c; range-safe guard (TPU's
-        # emulated f64 has f32 RANGE — keep guards inside f32 exponents)
+        # scale the sub-diagonal of column c; the guard stays inside f32's
+        # exponent range so it also holds for f32 factors
         piv = jax.lax.dynamic_slice(P, (j, c), (1, 1))[0, 0]
         safe = jnp.where(_abs2(piv) > 1e-30, piv, jnp.ones((), P.dtype))
         colv = jax.lax.dynamic_slice(P, (zero, c), (n, 1))[:, 0]
@@ -168,9 +159,8 @@ def factor_lu(H: jax.Array, block: int = 256) -> BlockedLU:
 # ---------------------------------------------------------------------------
 #
 # The fully-pivoted factor_lu above pays ~N sequential fori steps for its
-# panel factorization — measured 28 ms vs XLA QR's 3.7 ms at 2048² on v5e
-# (the column loop is dispatch-latency-bound, like every serial step on this
-# hardware). This variant removes per-COLUMN work entirely:
+# panel factorization (the column loop is launch-latency-bound). This
+# variant removes per-COLUMN work entirely:
 #
 #   * a depth-2 RANDOM BUTTERFLY TRANSFORM (Parker '95; Baboulin et al.,
 #     "Accelerating linear system solutions using randomization") makes
@@ -179,8 +169,7 @@ def factor_lu(H: jax.Array, block: int = 256) -> BlockedLU:
 #     A x = b becomes  A' y = Uᴴ b,  x = V y.  Applying a depth-d butterfly
 #     is O(d·N²) elementwise — no GEMMs, two passes over A per side.
 #   * the blocked elimination then factors only the b×b DIAGONAL block per
-#     panel (XLA's small LU — its scoped-VMEM defect appears at N ≥ 4096,
-#     256² is fine), keeping partial pivoting WITHIN the block (free safety
+#     panel (XLA's small LU), keeping partial pivoting WITHIN the block (free safety
 #     on top of the RBT), and everything else is trsm-by-explicit-inverse
 #     GEMMs: L21 = A21 U11⁻¹, U12 = L11⁻¹ A12, A22 −= L21 U12.
 #
@@ -243,7 +232,7 @@ def _rand_unit_diags(key: jax.Array, depth: int, n: int, dtype) -> jax.Array:
                                0.0, 2.0 * 3.14159265)
     if jnp.issubdtype(jnp.dtype(dtype), jnp.complexfloating):
         # lax.complex keeps the pair in c64 — "re + 1j*im" promotes through
-        # c128, which does not exist on TPU
+        # c128
         rdt = jnp.float32 if dtype == jnp.complex64 else jnp.float64
         return jax.lax.complex(jnp.cos(theta).astype(rdt),
                                jnp.sin(theta).astype(rdt)).astype(dtype)

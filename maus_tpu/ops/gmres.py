@@ -6,7 +6,7 @@ swallowed at AMS:98 — SURVEY.md §0.1); this module implements the *intended*
 capability natively:
 
 * **Batched over candidates**: one Arnoldi iteration for all K candidates is a single
-  ``(K, m+1, N) × (K, N)`` contraction plus one batched matvec — MXU-shaped work
+  ``(K, m+1, N) × (K, N)`` contraction plus one batched matvec — batched work
   instead of K sequential scipy calls.
 * **Matrix-free**: the operator is a closure, so eigen-shifted systems
   ``(A − λ_k I + Ψ_k D) w = v_k`` never materialize K copies of A (the direct path in
@@ -73,7 +73,8 @@ def gmres_batched(matvec: Callable[[jax.Array], jax.Array],
     K, N = b.shape
     dtype = b.dtype
     m = restart
-    # full-precision MXU math (TPU default is bf16-grade; Arnoldi dies at that)
+    # full-precision products (a TF32 default loses ~4 digits; Arnoldi dies
+    # at that)
     with jax.default_matmul_precision("highest"):
         return _gmres_impl(matvec, b, x0, precond_diag, tol, m, max_restarts)
 

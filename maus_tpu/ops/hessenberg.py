@@ -2,11 +2,10 @@
 
 THE structural optimization of the eigen hot path (VERDICT r1 #1). The
 reference solves ``(A − λ_k I + ΨD) w = v_k`` with one LAPACK LU per candidate
-per iteration (AMS:224-225/270-271) — O(K·N³) per iteration; round 1 mapped
-that to XLA's batched LU, which the MFU scorecard measures at <1% of the c64
-roofline at eig shapes (small-n batched pivoting is hostile to the MXU).
+per iteration (AMS:224-225/270-271) — O(K·N³) per iteration, and small-n
+batched pivoting maps poorly onto matrix units.
 
-TPU-first restructure: all K shifted operators share A, so reduce
+Restructure: all K shifted operators share A, so reduce
 ``A = Q H Qᴴ`` (upper Hessenberg) ONCE — O(N³), paid at setup — after which
 
     (A − λI)⁻¹ v  =  Q · (H − λI)⁻¹ · Qᴴ v
@@ -14,13 +13,13 @@ TPU-first restructure: all K shifted operators share A, so reduce
 and each shifted solve is a **Givens QR of an upper-Hessenberg matrix**:
 O(N²) per candidate with no pivoting (Givens is unconditionally stable), all
 batched over K as (K, N) row operations. Per iteration the eig path now costs
-two (K,N)×(N,N) GEMMs (MXU, memory-bound) + one O(K·N²) banded sweep instead
+two (K,N)×(N,N) GEMMs (memory-bound) + one O(K·N²) banded sweep instead
 of K LU factorizations.
 
-``jax.lax.linalg.hessenberg`` has no TPU lowering (probed: "MLIR translation
-rule not found"), so the reduction is implemented here as N−2 masked
-Householder similarity steps under ``lax.scan`` — fixed shapes, O(N³) total,
-GEMV-bound, one-time.
+``jax.lax.linalg.hessenberg`` lowers on the CPU only (JAX 0.9), so the
+reduction is implemented here: N−2 masked Householder similarity steps under
+``lax.scan``, or their blocked compact-WY form — fixed shapes, O(N³) total,
+one-time.
 
 Context in the multi-shift solver literature (PAPERS.md): shifted-system
 Krylov methods (multiple-mass solvers, multipreconditioned GMRES for shifted
@@ -36,6 +35,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ..core import backend
 
 
 class HessCache(NamedTuple):
@@ -104,11 +105,10 @@ def reduce_hessenberg_blocked(A: jax.Array, nb: int = 64) -> HessCache:
       ONE full GEMV per reflector (the Y append — the algorithm's memory
       floor);
     * at panel end the whole matrix and Q take three N×nb×N GEMM updates
-      (``H ← Pᴴ(H − Y·T·Vᴴ)``, ``Q ← Q − (QV)·T·Vᴴ``) on the MXU instead of
+      (``H ← Pᴴ(H − Y·T·Vᴴ)``, ``Q ← Q − (QV)·T·Vᴴ``) instead of
       6·nb rank-1/GEMV passes.
 
-    Measured on v5e (c64): 2.3× the scan version at N = 2048, 3.7× at 4096
-    (the scan pays ~6 N² passes + launch latency per column). Any N is
+    The scan version pays ~6 N² passes plus a launch per column. Any N is
     supported: full panels run under the scan and the (N−2) mod nb remainder
     finishes with single-column steps. Callers should use
     :func:`reduce_hessenberg_auto`, which also falls back to the scan
@@ -206,27 +206,20 @@ def reduce_hessenberg_auto(A: jax.Array, nb: int = 64) -> HessCache:
     return reduce_hessenberg(A)
 
 
-def _pallas_dispatch_ok(K: int, N: int, dtype) -> bool:
-    """Use the single-kernel Pallas sweep on TPU when shapes allow (the scan
-    fallback pays ~2N fused-op launches; the kernel pays none)."""
-    if jax.default_backend() in ("cpu", "gpu"):
-        return False
-    if dtype != jnp.complex64 or N % 128 != 0 or N > 1024:
-        return False
-    from .pallas.hess_solve import _kc_for
-    return K % _kc_for(N) == 0
-
-
 # The scan-based sweep materializes the evolving (K, N, N) triangularization
-# as a double-buffered loop carry — 2·K·N²·itemsize bytes of HLO temps. At
-# the probe's 4096²/K=32 eig config that is 8.6 GiB and the full evolve
-# program fits (measured); at 8192²/K=32 it is 34 GiB and the compile dies
-# RESOURCE_EXHAUSTED (driver-captured, benchmarks/results/r5/spectral.log:
-# two 8.00G allocations at hessenberg.py's shifted add). Past the cap the
-# sweep runs candidate-chunked under lax.map: identical flops, K/KC× the
-# scan-launch latency, temps bounded by the chunk budget.
-_HESS_SOLVE_TEMP_CAP = 9 << 30     # single-batch allowed up to here (probed)
-_HESS_SOLVE_CHUNK_BUDGET = 4 << 30  # per-chunk temp bytes once chunked
+# as a double-buffered loop carry — 2·K·N²·itemsize bytes of temps (34 GiB at
+# N=8192, K=32 in c64). Past a share of device memory the sweep runs
+# candidate-chunked under lax.map: identical flops, K/KC× the scan-launch
+# latency, temps bounded by the chunk budget. The shares are 9 GiB and 4 GiB
+# of the 15.75 GB device the rule was first sized on.
+_HESS_SOLVE_TEMP_SHARE = 0.61      # single batch allowed up to this share
+_HESS_SOLVE_CHUNK_SHARE = 0.27     # per-chunk temp share once chunked
+
+
+def _hess_solve_budgets() -> tuple[int, int]:
+    """(single-batch temp cap, per-chunk temp budget) in bytes."""
+    mem = backend.device_memory_bytes()
+    return int(_HESS_SOLVE_TEMP_SHARE * mem), int(_HESS_SOLVE_CHUNK_SHARE * mem)
 
 
 @functools.partial(jax.jit)
@@ -239,20 +232,13 @@ def solve_shifted_hessenberg(H: jax.Array, lams: jax.Array, B: jax.Array,
     no pivoting needed. ``psi``: optional (K,) real regularization added to
     the shifted diagonal (the Ψ ladder's rung, reference AMS:44).
 
-    On TPU at supported shapes the whole sweep runs as ONE Pallas kernel
-    (:mod:`maus_tpu.ops.pallas.hess_solve`) instead of a ~2N-step scan.
-    Large (K, N) batches run candidate-chunked (see _HESS_SOLVE_TEMP_CAP).
+    Large (K, N) batches run candidate-chunked (see _hess_solve_budgets).
     """
     K, N = B.shape
-    if _pallas_dispatch_ok(K, N, B.dtype):
-        from .pallas.hess_solve import hess_solve_batched_pallas
-        shift = -lams
-        if psi is not None:
-            shift = shift + psi.astype(B.dtype)
-        return hess_solve_batched_pallas(H, shift, B)
     percand = 2 * N * N * jnp.dtype(B.dtype).itemsize
-    if K * percand > _HESS_SOLVE_TEMP_CAP:
-        kc = max(1, int(_HESS_SOLVE_CHUNK_BUDGET // percand))
+    temp_cap, chunk_budget = _hess_solve_budgets()
+    if K * percand > temp_cap:
+        kc = max(1, int(chunk_budget // percand))
         g = -(-K // kc)
         pad = g * kc - K
         lams_p = jnp.concatenate([lams, jnp.broadcast_to(lams[-1:], (pad,))])

@@ -1,10 +1,10 @@
-"""Batched Lanczos — the TPU equivalent of the reference's ARPACK ``eigsh`` call
+"""Batched Lanczos — the device equivalent of the reference's ARPACK ``eigsh`` call
 on the sparse-Hermitian fast path (AMS:186-210: ``spla.eigsh(k≤6, which='LM',
 v0=candidate_vector)``).
 
-ARPACK's implicitly-restarted Lanczos is sequential Fortran; on TPU the right
-shape is a fixed-m Krylov build with **full reorthogonalization** (numerically
-robust, and the m×m Gram work is MXU-friendly), batched over candidates via
+ARPACK's implicitly-restarted Lanczos is sequential Fortran; on the device the
+right shape is a fixed-m Krylov build with **full reorthogonalization**
+(numerically robust, and the m×m Gram work is GEMM-shaped), batched over candidates via
 ``vmap`` — every candidate brings its own start vector ``v0`` exactly as the
 reference seeds ARPACK per candidate. The small (m, m) tridiagonal eigenproblem
 is solved with XLA's ``eigh``.

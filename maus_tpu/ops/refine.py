@@ -1,18 +1,15 @@
 """Mixed-precision iterative refinement.
 
-TPU constraint (probed on v5e): ``complex128`` is not supported at all, ``float64``
-is (software-emulated, slow but fine for O(N²) work). The classic mixed-precision
-recipe therefore becomes:
+The evolve loop works in ``complex64``; the user's tolerance (1e-8 relative
+residual, BASELINE.md) needs float64 residuals. The recipe:
 
-* factor + solve in ``complex64`` on the MXU (fast, O(N³));
-* represent high-precision iterates as **split re/im float64 pairs**;
-* compute residuals ``r = b − A x`` with four real f64 matvecs (O(N²), emulated);
-* correction solve ``H d = r`` reuses the c64 factorization.
+* factor + solve in ``complex64`` (fast, O(N³));
+* hold high-precision iterates as **split re/im float64 pairs**;
+* compute residuals ``r = b − A x`` in float64 (O(N²));
+* the correction solve ``H d = r`` reuses the c64 factorization.
 
-This reaches ‖Ax−b‖/‖b‖ ≈ 1e-8..1e-15 (κ(A)·eps_f32 < 1 permitting) without any
-c128 op ever reaching the TPU compiler. The reference has no analogue — it gets
-f64 for free on CPU; this module is what makes the 1e-8 north-star tolerance
-(BASELINE.md) reachable on TPU hardware.
+This reaches ‖Ax−b‖/‖b‖ ≈ 1e-8..1e-15 (κ(A)·eps_f32 < 1 permitting). The
+reference has no analogue: it computes in f64 throughout on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..core import backend
 from .batched_solve import (CholFactors, LUFactors, QRFactors, solve_chol,
                             solve_factored, solve_qr)
 
@@ -44,15 +42,9 @@ def _solve_any(fac, b):
 class FacPlanes(NamedTuple):
     """A factorization pytree with every complex leaf split into real planes.
 
-    WHY (probed on v5e at 16384²): this TPU backend materializes every
-    complex64 jit ARGUMENT twice — the argument buffer plus X64SplitHigh/Low
-    f32 plane temps that stay live across the refinement while-loop — so
-    passing Q,R (4.3 GB) as complex costs another 4.3 GB of pure duplication
-    inside the program (`compiled.memory_analysis()`: a c64-argument GEMV is
-    2 GB args + 2 GB temps; the same GEMV with f32 plane arguments combined
-    by ``lax.complex`` inside the jit is 2 GB args + 0 temps — the
-    combine/split pair folds). Large-N refinement therefore passes the
-    factors in this form; every refine entry point recombines it on trace.
+    Every refine entry point recombines it on trace, so a caller may hold
+    factors in either form (the hoisted Hessenberg cache of large-N eig is
+    kept as planes, ``solver/api.py::_hoisted_hessenberg``).
     """
 
     re: object      # pytree: fac with complex leaves replaced by .real
@@ -93,10 +85,9 @@ def _combine_fac(fac):
 
 
 class SplitComplex(NamedTuple):
-    """A complex vector/matrix held as separate real/imag parts (any float dtype).
-
-    Exists because c128 cannot live on TPU; (f64, f64) pairs can.
-    """
+    """A complex vector/matrix held as separate real/imag parts (any float
+    dtype): the f64 iterate and residual of refinement, next to a c64
+    working copy."""
 
     re: jax.Array
     im: jax.Array
@@ -107,16 +98,15 @@ class SplitComplex(NamedTuple):
 
     def to_complex(self, dtype=jnp.complex64) -> jax.Array:
         rdt = jnp.float32 if dtype == jnp.complex64 else jnp.float64
-        # lax.complex avoids an intermediate c128 (unsupported on TPU)
+        # lax.complex builds the target dtype directly (no c128 intermediate)
         return jax.lax.complex(self.re.astype(rdt),
                                self.im.astype(rdt)).astype(dtype)
 
     def norm(self) -> jax.Array:
-        # scaled form: the naive sum of squares overflows under the TPU's
-        # emulated f64 (f64 PRECISION, f32 RANGE — see _pow2_ceil) already
-        # for entries ~1e19, silently turning relative residuals into 0/inf.
-        # |z|/m ≤ 1 keeps the accumulation within any range. 1e-30 floor:
-        # the smallest guard that is itself f32-range-representable.
+        # scaled form: |z|/m ≤ 1 keeps the sum of squares in range for any
+        # entry size (the naive sum overflows, turning relative residuals
+        # into 0/inf). The 1e-30 floor is representable in float32 too, so
+        # the guard also holds for f32 planes.
         m = jnp.maximum(jnp.max(jnp.abs(self.re), axis=-1),
                         jnp.max(jnp.abs(self.im), axis=-1))
         safe = jnp.maximum(m, jnp.asarray(1e-30, self.re.dtype))
@@ -127,9 +117,7 @@ class SplitComplex(NamedTuple):
 
 def scaled_fro(re, im, axis=None):
     """Overflow-safe ‖·‖_F² building block: returns ``(scale, sum((|·|/scale)²))``
-    so ``fro2 = scale² · s``. The naive sum of squares overflows under TPU's
-    f32-RANGE emulated f64 already for entries ~1e19 (same class as
-    :meth:`SplitComplex.norm`'s scaled form)."""
+    so ``fro2 = scale² · s`` (same scaled form as :meth:`SplitComplex.norm`)."""
     m = jnp.maximum(jnp.max(jnp.abs(re)), jnp.max(jnp.abs(im)))
     scale = jnp.maximum(m, jnp.asarray(1e-30, re.dtype))
     r = re / scale
@@ -156,10 +144,9 @@ def split_residual(A: SplitComplex, x: SplitComplex, b: SplitComplex) -> SplitCo
 def _residual_3m(A: SplitComplex, Asum: jax.Array, x: SplitComplex,
                  b: SplitComplex) -> SplitComplex:
     """r = b − A x with the 3-multiplication complex trick: Karatsuba on the
-    planes (t1 = Ar·xr, t2 = Ai·xi, t3 = (Ar+Ai)(xr+xi)) cuts the emulated-f64
-    GEMVs from 4 to 3 — they are the dominant refinement cost on TPU. ``Asum``
-    = A.re + A.im, precomputed once per refinement call (one O(N²) add
-    amortized over every step)."""
+    planes (t1 = Ar·xr, t2 = Ai·xi, t3 = (Ar+Ai)(xr+xi)) cuts the f64 GEMVs
+    from 4 to 3. ``Asum`` = A.re + A.im, precomputed once per refinement
+    call (one O(N²) add amortized over every step)."""
     t1 = A.re @ x.re
     t2 = A.im @ x.im
     t3 = Asum @ (x.re + x.im)
@@ -167,61 +154,66 @@ def _residual_3m(A: SplitComplex, Asum: jax.Array, x: SplitComplex,
 
 
 # ---------------------------------------------------------------------------
-# Exact-slicing (Ozaki-scheme) f64 residual on the MXU.
+# Exact-slicing (Ozaki-scheme) f64 residual from low-precision products.
 #
-# XLA's emulated-f64 GEMV runs ~50× below HBM bandwidth on TPU (measured
-# 11.7 ms for a 4096² plane vs 0.22 ms of streaming). This computes the SAME
-# f64 residual with error-free bf16 MXU passes instead: decompose each
-# operand into base-2^w integer slices under a global power-of-two scale —
-# every slice is integer-valued with |s| ≤ 2^w, hence EXACT in bf16; every
-# product is ≤ 2^{2w} and every length-N f32 accumulation stays ≤ 2^{2w}·N
-# < 2^24, hence EXACT on the MXU (bf16 inputs, f32 accumulation). Slicing
-# itself is exact f64 arithmetic (power-of-2 scaling + round-to-int
+# For a backend without native f64 (``backend.native_f64()`` False), this
+# computes the SAME f64 residual with error-free bf16 products: decompose
+# each operand into base-2^w integer slices under a global power-of-two
+# scale — every slice is integer-valued with |s| ≤ 2^w, hence EXACT in bf16;
+# every product is ≤ 2^{2w} and every length-N f32 accumulation stays
+# ≤ 2^{2w}·N < 2^24, hence EXACT with bf16 inputs and f32 accumulation.
+# Slicing itself is exact f64 arithmetic (power-of-2 scaling + round-to-int
 # subtraction), and with enough slices (⌈53/w⌉ absolute bits below the
 # global plane maximum — see slice_split_matrix's docstring) the
-# reconstruction in f64 is exact to f64-ADDITION roundoff — i.e. this is
-# MORE accurate than the emulated-f64 GEMV it replaces, at the cost of a
-# few extra bf16 streaming passes. See e.g. Ozaki et al., "Error-free
-# transformations of matrix multiplication" (Numer. Algorithms 59, 2012);
-# Ootomo & Yokota apply the same idea to tensor cores.
+# reconstruction in f64 is exact to f64-ADDITION roundoff. See e.g. Ozaki
+# et al., "Error-free transformations of matrix multiplication" (Numer.
+# Algorithms 59, 2012); Ootomo & Yokota apply the same idea to tensor cores.
+#
+# Both supported platforms have native f64, so the library no longer takes
+# these paths (ROADMAP D2); the CPU tests keep them correct.
 # ---------------------------------------------------------------------------
 
 class SlicedMatrix(NamedTuple):
-    """Base-2^w integer-sliced split-complex matrix for exact MXU matvecs."""
+    """Base-2^w integer-sliced split-complex matrix for exact bf16 matvecs."""
 
     sl_re: jax.Array     # (sA, N, N) bf16, integer-valued
     sl_im: jax.Array
     sigma: jax.Array     # f64 power-of-two global scale
 
 
-def _slices_fit(A64: SplitComplex, budget_bytes: float = 6e9) -> bool:
+# Share of device memory the resident bf16 ladder may take (6 GB of a
+# 15.75 GB device, where the rule was chosen: it left room for the operand
+# planes, the c64 factorization and workspace).
+_LADDER_MEMORY_SHARE = 0.38
+
+
+def _slices_fit(A64: SplitComplex, budget_bytes: float | None = None) -> bool:
     """Whether the exact-slicing scheme applies to this operand: the full
-    bf16 slice ladder (~24 planes) must fit the slice budget (6 GB leaves
-    room for the operand planes, the c64 factorization, and workspace inside
-    a 16 GB-HBM chip — at N = 16384 the ladder alone would be ~13 GB), AND
-    every contraction must stay exactly accumulable in f32: products ≤ 2^{2w}
-    times a contraction length ≤ 2^{24−2w} = 16384 for w = 5 — the bound is
-    on the LONGEST axis because the adjoint matvec contracts the other one."""
+    bf16 slice ladder (~24 planes) must fit the slice budget (by default
+    ``_LADDER_MEMORY_SHARE`` of device memory), AND every contraction must
+    stay exactly accumulable in f32: products ≤ 2^{2w} times a contraction
+    length ≤ 2^{24−2w} = 16384 for w = 5 — the bound is on the LONGEST axis
+    because the adjoint matvec contracts the other one."""
+    if budget_bytes is None:
+        budget_bytes = _LADDER_MEMORY_SHARE * backend.device_memory_bytes()
     nelem = A64.re.size
     return 24 * 2 * nelem <= budget_bytes and max(A64.re.shape) <= 16384
 
 
 def use_sliced_matvecs(A64: SplitComplex) -> bool:
     """Single dispatch rule for every f64-matvec site (refinement, GMRES-IR,
-    eig/SVD finishers, the diagnose cond probe): exact-slicing bf16 MXU
-    matvecs on TPU when the ladder fits and the planes are f64; the native
-    (CPU) or emulated-f64 path otherwise."""
-    return jax.default_backend() != "cpu" and \
+    eig/SVD finishers, the diagnose cond probe): exact-slicing bf16 matvecs
+    only where f64 is not native and the ladder fits; native f64 otherwise."""
+    return not backend.native_f64() and \
         A64.re.dtype == jnp.float64 and _slices_fit(A64)
 
 
 def _pow2_ceil(m):
     """Smallest power of two ≥ m, as exact f64, floored at ~2^-99.
 
-    The floor must sit inside FLOAT32's exponent range: TPU's emulated f64
-    carries f64 precision but f32 RANGE (probed: log2(1e-300) → nan,
-    exp2(-997) → 0 on v5e), so a 1e-300-style guard silently produces
-    nan/zero scales for all-zero inputs there."""
+    The floor sits inside FLOAT32's exponent range, so the scale stays valid
+    (no nan from log2, no zero from exp2) for all-zero inputs even where the
+    f64 arithmetic has only float32 range."""
     return jnp.exp2(jnp.ceil(jnp.log2(jnp.maximum(m, 1e-30))))
 
 
@@ -251,27 +243,26 @@ def extract_ladder(re: jax.Array, im: jax.Array, sigma: jax.Array,
     column-sharded extraction in parallel/dist_refine.py, where ``sigma``
     comes from a cross-shard pmax so every shard slices on one global grid).
 
-    Emulated-f64 elementwise passes dominate slicing cost (~4 ms/pass at
-    4096²), so extract 3w = 15 bits per f64 pass (integers ≤ 2^15, exact in
-    f32) and split each wide slice into three w-bit bf16 slices with exact
-    f32 integer arithmetic — 3× fewer slow passes, identical ladder.
+    Where f64 is not native its elementwise passes dominate slicing cost, so
+    extract 3w = 15 bits per f64 pass (integers ≤ 2^15, exact in f32) and
+    split each wide slice into three w-bit bf16 slices with exact f32
+    integer arithmetic — 3× fewer f64 passes, identical ladder.
 
-    ``f32_tail`` (STATUS r3 gap 3): after TWO wide passes the extracted grid
+    ``f32_tail``: after TWO wide passes the extracted grid
     covers 30 absolute bits below σ and the remainder satisfies |z| ≤ 0.5 on
     the 2^{−30} grid; casting it to f32 rounds by ≤ 2^{−24}·|z| ≤ 2^{−25},
     i.e. ≤ 2^{−55}·σ absolute — strictly below the ladder's own 2^{−53}·σ
     truncation contract (:func:`slice_split_matrix`) — after which the
     remaining passes are native f32 (exact: power-of-2 scaling, x − round(x)
     cancellation, and integer slices are all f32-representable). Default:
-    on for accelerator backends (the emulated-f64 passes are the dominant
-    extraction cost there), off on CPU where f64 is native and the full
-    2^{−60} reconstruction exactness is free.
+    on only where f64 is not native; off where it is, since the full
+    2^{−60} reconstruction exactness is then free.
 
     Returns ``(slices_re, slices_im)`` stacked (sA, …) bf16."""
     if w != 5:
         raise ValueError("the wide-extraction path assumes w = 5")
     if f32_tail is None:
-        f32_tail = jax.default_backend() != "cpu"
+        f32_tail = not backend.native_f64()
     s = -(-mant_bits // w)
     n_wide = -(-s // 3)
 
@@ -377,7 +368,7 @@ def _sliced_residual(sp: SlicedMatrix, x: SplitComplex, b: SplitComplex,
 
 def streamed_panels(A64: SplitComplex, budget_bytes: float = 3e9) -> int:
     """Panel count for the STREAMED slice residual at sizes where the full
-    ladder no longer fits (N ≳ 12k single-chip): only ladder/panels bytes of
+    ladder no longer fits: only ladder/panels bytes of
     bf16 slices are live at once. Purely memory-driven — panels need NOT
     divide the column count (the last panel is simply narrower; the previous
     smallest-divisor search degenerated to ~N one-column panels for prime or
@@ -387,14 +378,12 @@ def streamed_panels(A64: SplitComplex, budget_bytes: float = 3e9) -> int:
 
 
 def use_streamed_sliced(A64: SplitComplex) -> bool:
-    """Middle dispatch tier between the resident ladder and the emulated-f64
-    fallback: TPU + f64 planes + contraction still f32-exact per panel, but
-    the full ladder exceeds the resident budget. Per-call cost is the same
-    GEMM traffic plus a re-extraction of the ladder (emulated-f64 elementwise
-    passes) — measured at 16384² this still beats the 3M emulated-f64 GEMV
-    fallback, and the ACCURACY is the exact-slicing one (see bench note in
-    docs/STATUS.md)."""
-    return jax.default_backend() != "cpu" and \
+    """Middle dispatch tier between the resident ladder and the plain f64
+    GEMVs: f64 not native + f64 planes + contraction still f32-exact per
+    panel, but the full ladder exceeds the resident budget. Per-call cost is
+    the same GEMM traffic plus a re-extraction of the ladder; the ACCURACY
+    is the exact-slicing one."""
+    return not backend.native_f64() and \
         A64.re.dtype == jnp.float64 and not _slices_fit(A64) and \
         max(A64.re.shape) <= 16384
 
@@ -410,8 +399,8 @@ def _sliced_residual_streamed(A64: SplitComplex, x: SplitComplex,
     and freed (the unrolled loop keeps only one panel's slices live). Identical
     f64 result to :func:`_sliced_residual` (same grid, same exact products,
     f64 accumulation reordered by panel). ``sigma``: precomputed global scale
-    (refinement hoists it — two full-plane emulated-f64 abs-max passes per
-    call otherwise; it only depends on A)."""
+    (refinement hoists it — two full-plane abs-max passes per call
+    otherwise; it only depends on A)."""
     f64 = jnp.float64
     m_rows, n = A64.re.shape
     per = -(-n // panels)          # ceil: the last panel may be narrower
@@ -535,7 +524,7 @@ def refine_split(A, fac: LUFactors, b, x0: jax.Array,
     b64 = b if isinstance(b, SplitComplex) else SplitComplex.from_complex(b)
     # when the caller passed the complex array itself, reuse it as the
     # incremental-matvec copy — rebuilding it from the widened planes is two
-    # emulated-f64 downcast passes plus a second N² array in HBM for a
+    # f64 downcast passes plus a second N² array in device memory for a
     # bitwise-equal result
     Ac = A if not isinstance(A, SplitComplex) and \
         jnp.issubdtype(A.dtype, jnp.complexfloating) and \
@@ -545,104 +534,51 @@ def refine_split(A, fac: LUFactors, b, x0: jax.Array,
                                   Ac=Ac)
 
 
-def use_fused_sliced(A64: SplitComplex) -> bool:
-    """Dispatch rule for the fused in-VMEM slice-residual kernel
-    (ops/pallas/slice_residual.py): accelerator backend, f64 planes, tileable
-    shape, and the resident bf16 ladder does NOT fit. Where the ladder fits
-    it stays preferred — a fused certification re-extracts digits on the VPU
-    every call and measures ~2× a ladder-streaming one in the solve program
-    (v5e: headline 0.105 s ladder vs 0.110-0.147 s fused —
-    benchmarks/fused_probe.py has the isolated numbers). Past the ladder
-    limit (N ≳ 12k) the fused kernel replaces the panel-STREAMED residual,
-    whose per-call emulated-f64 re-extraction it beats several-fold, and its
-    12 B/elem triple is the only resident representation needed."""
-    from .pallas.slice_residual import fused_ok
-
-    return A64.re.dtype == jnp.float64 and fused_ok(A64.re.shape) \
-        and not _slices_fit(A64)
-
-
-@functools.partial(jax.jit, static_argnames=("steps",))
 def refine_split_c64exact(A: jax.Array, fac: LUFactors, b, x0: jax.Array,
                           steps: int = 3, tol: float = 0.0
                           ) -> tuple[SplitComplex, jax.Array]:
     """:func:`refine_split` for operands whose f64 widening is EXACT (the
     operand is the working-dtype c64 array itself — bench-generated systems,
-    user float32/complex64 inputs).
-
-    The f64 operand planes are never materialized: the fused in-VMEM residual
-    kernel runs on a single-component (hi-only) digit triple built from A's
-    own f32 planes, and the incremental-residual matvec copy IS A. At 16384²
-    this removes ~8.6 GB of HBM (4.3 planes + 2.15 separate c64 copy + two
-    thirds of the triple) — the memory key to single-chip 16k refinement —
-    and halves the kernel's VPU digit-extraction work (12 digit planes
-    instead of 23)."""
-    from .pallas.slice_residual import (fused_ok, sliced_residual_fused,
-                                        split_triple_c64)
-
-    b64 = b if isinstance(b, SplitComplex) else SplitComplex.from_complex(b)
-    with jax.default_matmul_precision("highest"):
-        if jax.default_backend() != "cpu" and fused_ok(A.shape):
-            tri = split_triple_c64(A)
-            return _refine_split_impl(
-                None, fac, b64, x0, steps, tol,
-                true_resid=lambda x64: sliced_residual_fused(tri, x64, b64),
-                Ac=A)
-        # CPU / non-tileable shapes: the ordinary widened-plane dispatch
-        A64 = SplitComplex(A.real.astype(jnp.float64),
-                           A.imag.astype(jnp.float64))
-        return _refine_split_impl(A64, fac, b64, x0, steps, tol)
+    user float32/complex64 inputs): the f64 planes are widened from A inside
+    the program, and A itself is the incremental-residual matvec copy."""
+    return refine_split(A, fac, b, x0, steps=steps, tol=tol)
 
 
 def make_true_resid(A64: SplitComplex, b64: SplitComplex,
                     a_mant_bits: int = 53):
     """ONE dispatch ladder for the true-f64 residual ``x64 → b − A x``:
 
-    1. fused in-VMEM slice kernel (accelerator, tileable, ladder doesn't fit);
-    2. resident exact-slicing bf16 ladder (it fits);
-    3. streamed per-panel ladder (too big to keep resident);
-    4. 3M-trick plane GEMVs (CPU native f64, or the memory-light fallback).
+    1. resident exact-slicing bf16 ladder (f64 not native, ladder fits);
+    2. streamed per-panel ladder (f64 not native, too big to keep resident);
+    3. 3M-trick native f64 plane GEMVs (every supported platform).
 
-    Shared by plain IR and GMRES-IR (they previously carried drifting copies
-    of this block)."""
-    if a_mant_bits == 53 and use_fused_sliced(A64):
-        from .pallas.slice_residual import (sliced_residual_fused,
-                                            split_triple)
-
-        tri = split_triple(A64)
-        return lambda x64: sliced_residual_fused(tri, x64, b64)
+    Shared by plain IR and GMRES-IR."""
     if use_sliced_matvecs(A64):
-        # emulated-f64 GEMVs run ~50× below bandwidth on TPU; exact-slicing
-        # bf16 MXU residual instead (identical f64 result, see SlicedMatrix)
         spA = slice_split_matrix(A64, mant_bits=a_mant_bits)
         return lambda x64: _sliced_residual(spA, x64, b64)
     if use_streamed_sliced(A64):
-        # ladder too big to keep resident (N ≳ 12k): stream it per column
-        # panel — same exact-slicing accuracy, re-extraction per call
+        # ladder too big to keep resident: stream it per column panel —
+        # same exact-slicing accuracy, re-extraction per call
         panels = streamed_panels(A64)
         sigma_s = _pow2_ceil(jnp.maximum(jnp.max(jnp.abs(A64.re)),
                                          jnp.max(jnp.abs(A64.im))))
         return lambda x64: _sliced_residual_streamed(
             A64, x64, b64, panels, mant_bits=a_mant_bits, sigma=sigma_s)
-    # native f64 BLAS on CPU — the 3M-trick GEMV path is already
-    # bandwidth-fast there; the emulated-f64 path is the safe fallback
-    # elsewhere (slow, but O(N²) and memory-light)
     Asum = A64.re + A64.im              # one-time plane sum for the 3M matvec
     return lambda x64: _residual_3m(A64, Asum, x64, b64)
 
 
 def _refine_split_impl(A64, fac, b64, x0, steps, tol, a_mant_bits=53,
                        true_resid=None, Ac=None):
-    # 1e-30: smallest f32-RANGE-safe floor (TPU emulated f64, see _pow2_ceil)
+    # 1e-30 floor: representable in float32 range too (see _pow2_ceil)
     bnorm = jnp.maximum(b64.norm(), jnp.asarray(1e-30, jnp.float64))
     if true_resid is None:
         true_resid = make_true_resid(A64, b64, a_mant_bits)
 
-    # Certified-incremental refinement. The emulated-f64 residual matvec is the
-    # dominant TPU cost (measured 35 ms/step at 4096² vs 2.8 ms for the
-    # correction solve), so the inner loop carries the residual INCREMENTALLY
-    # in the working dtype — r ← r − A·d costs one c64 GEMV (~0.3 ms), with
-    # relative error ε_f32·κ·‖r‖/‖r‖ ≈ ε·κ per step (< 1 whenever c64 IR can
+    # Certified-incremental refinement. The f64 residual reads the operand's
+    # f64 planes (3 N² f64 passes), so the inner loop carries the residual
+    # INCREMENTALLY in the working dtype — r ← r − A·d costs one c64 GEMV,
+    # with relative error ε_f32·κ·‖r‖/‖r‖ ≈ ε·κ per step (< 1 whenever c64 IR can
     # converge at all; it only slows the contraction, never fakes it). Every
     # INNER steps (or on apparent convergence/stall) the outer loop CERTIFIES
     # with a true split-f64 residual and keeps the best certified iterate —
@@ -657,8 +593,8 @@ def _refine_split_impl(A64, fac, b64, x0, steps, tol, a_mant_bits=53,
     def inner_cond(carry):
         _, _, rel, prev_rel, it = carry
         # push past the certify target by 4×: the carried estimate drifts by
-        # ~ε·κ per step, and overshooting costs ~3 ms/step while a failed
-        # certification costs a full 35 ms f64 residual round
+        # ~ε·κ per step, and an overshooting step (one c64 solve + GEMV) is
+        # cheaper than a failed certification (a full f64 residual round)
         return (it < INNER) & (rel > 0.25 * tol) & (rel <= 0.9 * prev_rel)
 
     def inner_body(carry):
@@ -741,10 +677,9 @@ def refine_gmres(A, fac, b, x0: jax.Array, steps: int = 3, tol: float = 0.0,
     A64 = A if isinstance(A, SplitComplex) else SplitComplex.from_complex(A)
     b64 = b if isinstance(b, SplitComplex) else SplitComplex.from_complex(b)
     with jax.default_matmul_precision("highest"):
-        # the impl MUST be jitted with the factors as arguments: executed
-        # eagerly, the lax.while_loop captures fac/A64 as jaxpr CONSTANTS,
-        # whose materialization needs a complex host crossing — UNIMPLEMENTED
-        # on this backend (probed round 4; the path was CPU-only until then)
+        # jitted with the factors as arguments: executed eagerly, the
+        # lax.while_loop would capture fac/A64 as jaxpr constants and embed
+        # copies of them in the program
         return _refine_gmres_jit(A64, fac, b64, x0, steps, float(tol),
                                  restart, gmres_batched)
 
@@ -758,7 +693,7 @@ def _refine_gmres_jit(A64, fac, b64, x0, steps, tol, restart, gmres_batched):
 
 
 def _refine_gmres_impl(A64, fac, b64, x0, steps, tol, restart, gmres_batched):
-    # 1e-30: smallest f32-RANGE-safe floor (TPU emulated f64, see _pow2_ceil)
+    # 1e-30 floor: representable in float32 range too (see _pow2_ceil)
     bnorm = jnp.maximum(b64.norm(), jnp.asarray(1e-30, jnp.float64))
     true_resid = make_true_resid(A64, b64)
     Ac = A64.to_complex(x0.dtype)

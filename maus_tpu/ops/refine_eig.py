@@ -1,11 +1,10 @@
 """Mixed-precision finishers for eigenpairs and singular triplets.
 
-The linear path reaches the user's 1e-8 tolerance on TPU via split-f64
-iterative refinement (:mod:`maus_tpu.ops.refine`). This module closes the same
-gap for the other two problem classes (VERDICT r1 #2): on real TPU hardware
-(c64 compute, no c128 anywhere) the evolve loop accepts eig/SVD candidates at
-the c64 floor ≈ √N·ε_f32; these finishers take those candidates to f64-limited
-accuracy with O(N²) work per step.
+The linear path reaches the user's 1e-8 tolerance via split-f64 iterative
+refinement (:mod:`maus_tpu.ops.refine`). This module closes the same gap for
+the other two problem classes: with c64 compute the evolve loop accepts
+eig/SVD candidates at the c64 floor ≈ √N·ε_f32; these finishers take those
+candidates to f64-limited accuracy with O(N²) work per step.
 
 Eigenpairs — Newton iteration on F(v, λ) = (Av − λv, vᴴv − 1):
 
@@ -32,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsla
 
+from ..core import backend
 from .refine import (SplitComplex, scaled_fro, slice_split_matrix,
                      sliced_matvec_batch)
 
@@ -40,26 +40,21 @@ def _percand_shifted_solver(build_H, shifts, n: int):
     """Factor one (N, N) shifted system per candidate and return a batched
     ``solve(B: (K, N)) -> (K, N)`` closure.
 
-    Three regimes, each forced by a probed XLA:TPU scoped-VMEM limit
-    (16 MB cap; "should not be possible to run out of scoped vmem"):
+    Three regimes; the last two exist only for a backend with a branch
+    memory cap (``backend.branch_memory_cap()``, False on every supported
+    platform), whose compiler refuses the batched complex LU past N = 2048
+    and the unbatched one past N = 4096:
 
-    1. **vmap LU** (CPU, or N ≤ 2048): the fast batched path.
-    2. **lax.map LU** (accelerator, N ≤ 4096): the BATCHED complex
-       LuDecompositionBlock requests a fixed ~16.55 MB pivot panel
-       regardless of batch size (probed at batch 8/4/3 at N=4096, all
-       rejected), while the unbatched LU compiles at 0.19 GB temp —
+    1. **vmap LU**: the fast batched path.
+    2. **lax.map LU** (capped backend, N ≤ 4096): one candidate at a time —
        identical O(K·N³) flops, only the factorization loses
        cross-candidate parallelism.
-    3. **lax.map QR** (accelerator, N > 4096): even the UNBATCHED complex
-       LU breaches the cap at 8192 (f32[8192,128] pivot-panel pair
-       reported at 20.04M). QR has no pivot panel — the 16384² shared QR
-       is production — so H = QR per candidate (2× LU flops, 2× factor
-       storage; ``MausSolver._refine_chunk`` halves the chunk accordingly).
+    3. **lax.map QR** (capped backend, N > 4096): QR has no pivot panel, so
+       H = QR per candidate (2× LU flops, 2× factor storage;
+       ``MausSolver._refine_chunk`` halves the chunk accordingly).
 
-    The Newton loop's repeated solves stay vmap-batched in every regime
-    (batched lu_solve / Qᴴ-GEMV + triangular solve compile — probed)."""
-    backend = jax.default_backend()
-    if backend == "cpu" or n <= 2048:
+    The Newton loop's repeated solves stay vmap-batched in every regime."""
+    if not backend.branch_memory_cap() or n <= 2048:
         lu, piv = jax.vmap(lambda s: jsla.lu_factor(build_H(s)))(shifts)
         return lambda B: jax.vmap(
             lambda l, p, b: jsla.lu_solve((l, p), b))(lu, piv, B)
@@ -95,9 +90,8 @@ def _smatvec_adj(A: SplitComplex, X: SplitComplex) -> SplitComplex:
 
 
 def _matvec_fns(A64: SplitComplex):
-    """(A·x, Aᴴ·x) batched-row f64 matvecs: native-f64 GEMMs on CPU,
-    exact-slicing bf16 MXU GEMMs on TPU (emulated-f64 GEMMs run ~50× below
-    bandwidth there — see refine.SlicedMatrix)."""
+    """(A·x, Aᴴ·x) batched-row f64 matvecs: native-f64 GEMMs, or the
+    exact-slicing bf16 GEMMs where f64 is not native (refine.SlicedMatrix)."""
     from .refine import use_sliced_matvecs
 
     if not use_sliced_matvecs(A64):

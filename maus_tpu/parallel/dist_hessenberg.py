@@ -1,12 +1,11 @@
 """Distributed (column-sharded) Hessenberg reduction + shifted solves + eig.
 
-Completes the distributed story for the EIGENVALUE path (the round-2 gap named
-in docs/STATUS.md: "distributed eig (sharded Hessenberg reduction) not
-built"). The single-chip eig hot path (ops/hessenberg.py) reduces A = Q H Qᴴ
+Completes the distributed story for the EIGENVALUE path. The single-device
+eig hot path (ops/hessenberg.py) reduces A = Q H Qᴴ
 once and then runs every per-candidate shifted solve in O(N²); here the same
 two stages run with **A, H, Q and the per-candidate working set all
 column-sharded over the mesh's model axis**, so per-device memory is
-≈ (2·N² + K·N²)/m and an eig operand larger than one chip's HBM reduces and
+≈ (2·N² + K·N²)/m and an eig operand larger than one device's memory reduces and
 iterates in place — the eig-path counterpart of ``parallel/dist_qr.py``.
 
 Algorithm / communication budget (per reduction step j, N−2 steps):
@@ -21,10 +20,10 @@ Total O(N²) communication for the O(N³) reduction — the same ratio as
 
 The shifted-solve sweep (``dist_hess_solve``) keeps the per-candidate R
 factors column-sharded; rotations apply locally to (K, C) row slices and only
-the per-column pivot pair (O(K) values) crosses the ICI per step. It is
-latency-bound (2N psums of K scalars) and therefore meant for operands that
-*cannot* fit one chip — at single-chip sizes ``ops/hessenberg`` (one Pallas
-program, zero collectives) is strictly faster; ``eig()``'s mesh router picks
+the per-column pivot pair (O(K) values) crosses the interconnect per step.
+It is latency-bound (2N psums of K scalars) and therefore meant for operands
+that *cannot* fit one device — at single-device sizes ``ops/hessenberg``
+(zero collectives) is strictly faster; ``eig()``'s mesh router picks
 accordingly.
 
 Reference parity: this distributes the reference's per-candidate
@@ -299,8 +298,7 @@ def _dist_matvec_rows(mesh: Mesh, M: jax.Array, X: jax.Array) -> jax.Array:
 def _spectrum_moments(mesh: Mesh, H: jax.Array):
     """(lam_center, lam_scale, psi0) from the sharded H — H is similar to A,
     so tr(H) and ‖H‖_F match A's and the moment-matched shift init of
-    ``candidate.init_population`` carries over. All complex math stays jitted
-    (eager complex ops crash this TPU runtime)."""
+    ``candidate.init_population`` carries over."""
     n = H.shape[0]
     m = mesh.shape[MODEL_AXIS]
     c = n // m
@@ -350,7 +348,7 @@ def _eig_iterate(mesh: Mesh, hess: DistHess, key: jax.Array, k: int,
     # ``iterations`` is an upper BOUND (consistent with evolve_while's
     # semantics): each distributed iteration costs a 2N-step latency-bound
     # collective scan, so running a fixed count after convergence would waste
-    # minutes of ICI wall-clock at large N. Stop when the worst candidate
+    # minutes of collective wall-clock at large N. Stop when the worst candidate
     # residual falls below the dtype floor or stalls.
     eps = jnp.asarray(jnp.finfo(rdt).eps, rdt)
     scale = (jnp.abs(lam_center) + lam_scale).real.astype(rdt)
@@ -426,7 +424,8 @@ def eig_distributed(mesh: Mesh, A, num_candidates: int = 16,
     """
     import numpy as np
 
-    from ..utils.xfer import to_device_complex, to_host_complex
+    from ..core import backend
+    from ..utils.xfer import to_host_complex
 
     n = A.shape[0]
     m = mesh.shape[MODEL_AXIS]
@@ -434,12 +433,8 @@ def eig_distributed(mesh: Mesh, A, num_candidates: int = 16,
         raise ValueError(f"N={n} must divide by model axis {m}")
     col_shard = NamedSharding(mesh, P(None, MODEL_AXIS))
     if not hasattr(A, "sharding"):
-        # compute dtype by BACKEND (c128 does not exist on TPU; on CPU under
-        # x64 keep full precision) — same rule as MausSolver (solver/api.py)
-        use_c128 = jax.default_backend() == "cpu" and \
-            jax.config.jax_enable_x64
-        A = to_device_complex(np.asarray(A),
-                              jnp.complex128 if use_c128 else jnp.complex64)
+        # same compute-dtype rule as MausSolver (solver/api.py)
+        A = np.asarray(A).astype(backend.default_complex_dtype())
     A = jax.device_put(A, col_shard)
     hess = dist_hessenberg(mesh, A)
 

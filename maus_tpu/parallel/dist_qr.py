@@ -1,7 +1,7 @@
 """Distributed QR factorization + solve (VERDICT r1 #3, SURVEY §7.2 step 7).
 
-GSPMD replicates XLA's QR/LU, so in round 1 an operand had to fit one chip's
-HBM. This module factorizes a COLUMN-sharded operand in place with a panel
+GSPMD replicates XLA's QR/LU, so without this module an operand has to fit
+one device's memory. This module factorizes a COLUMN-sharded operand in place with a panel
 CGS2 (communication-avoiding) blocked QR written in ``shard_map``:
 
 * A, Q, R are all column-sharded over the ``model`` axis — per-device memory is
@@ -13,7 +13,7 @@ CGS2 (communication-avoiding) blocked QR written in ``shard_map``:
   Not-yet-computed Q columns are zero, so no masking is needed: they
   contribute nothing to the projections.
 * Total communication is O(N²) per factorization — the same as ONE all-gather
-  of A — while the O(N³) GEMM work splits m ways and stays MXU-shaped.
+  of A — while the O(N³) GEMM work splits m ways and stays GEMM-shaped.
 
 The solve path (``dist_qr_solve``) is y = Qᴴb (local GEMVs + one all-gather)
 followed by a column-oriented blocked back-substitution where each panel's R
@@ -24,8 +24,8 @@ refinement (the correction solves reuse the sharded factors) into the
 large-N linear entry point.
 
 The reference has no distributed story at all (SURVEY §2.3); this is the
-TPU-native equivalent of its LAPACK ``sla.solve`` core (AMS:59) for operands
-beyond one chip.
+device-mesh equivalent of its LAPACK ``sla.solve`` core (AMS:59) for operands
+beyond one device.
 """
 from __future__ import annotations
 
@@ -37,6 +37,8 @@ import jax.numpy as jnp
 import jax.scipy.linalg as jsla
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..core import backend
+from ..ops.refine import _LADDER_MEMORY_SHARE
 from .mesh import MODEL_AXIS
 
 
@@ -170,16 +172,15 @@ def dist_qr_solve(mesh: Mesh, fac: DistQR, b: jax.Array,
 
 def use_dist_sliced(mesh, Are) -> bool:
     """Dispatch rule for the distributed f64 residual: column-sharded
-    exact-slicing bf16 MXU passes on TPU when the PER-SHARD ladder fits —
-    both the memory cap and the f32-exact contraction-length cap of the
-    dense rule (ops.refine._slices_fit) scale by the mesh factor m, because
-    each device holds and contracts only N/m columns."""
-    import jax as _jax
-
-    if _jax.default_backend() == "cpu" or Are.dtype != jnp.float64:
+    exact-slicing bf16 passes where f64 is not native and the PER-SHARD
+    ladder fits — both the memory cap and the f32-exact contraction-length
+    cap of the dense rule (ops.refine._slices_fit) scale by the mesh factor
+    m, because each device holds and contracts only N/m columns."""
+    if backend.native_f64() or Are.dtype != jnp.float64:
         return False
     m = mesh.shape[MODEL_AXIS]
-    return 24 * 2 * (Are.size // m) <= 6e9 and \
+    budget = _LADDER_MEMORY_SHARE * backend.device_memory_bytes()
+    return 24 * 2 * (Are.size // m) <= budget and \
         Are.shape[1] // m <= 16384 and Are.shape[0] <= 16384
 
 
@@ -192,8 +193,8 @@ def refine_distributed(mesh, fac: DistQR, Are, Aim, bre, bim, x0,
 
     ``sliced=True`` computes the f64 residuals with the COLUMN-SHARDED
     exact-slicing bf16 ladder (parallel/dist_refine.py — identical f64
-    result, MXU-speed instead of ~50×-below-bandwidth emulated-f64 GEMVs on
-    TPU; see ops/refine.py's SlicedMatrix notes). Callers pick via
+    result without native f64; see ops/refine.py's SlicedMatrix notes).
+    Callers pick via
     :func:`use_dist_sliced`. Returns ``(x_re, x_im, rel)``."""
     rdt = Are.dtype
     bnorm = jnp.maximum(jnp.sqrt(jnp.sum(bre * bre + bim * bim)),
@@ -264,15 +265,13 @@ def _dist_solve_refined(mesh, A, b, Are, Aim, bre, bim, block, steps, tol):
 
 
 def _staging_dtypes():
-    """(split-plane dtype, compute dtype) by backend: only downcast where the
-    device cannot hold the wide dtype — on CPU with x64 the factorization
-    keeps full precision (a forced c64 base factorization needs more IR steps
-    and can stall at the eps32·κ contraction limit on ill-conditioned
-    systems)."""
+    """(split-plane dtype, compute dtype): the compute dtype is the backend's
+    default (``backend.default_complex_dtype``) — on CPU with x64 the
+    factorization keeps full precision (a forced c64 base factorization needs
+    more IR steps and can stall at the eps32·κ contraction limit on
+    ill-conditioned systems)."""
     rdt = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-    cdtype = jnp.complex128 if (jax.default_backend() == "cpu" and
-                                jax.config.jax_enable_x64) else jnp.complex64
-    return rdt, cdtype
+    return rdt, backend.default_complex_dtype()
 
 
 def stage_A(mesh: Mesh, A):
@@ -283,18 +282,17 @@ def stage_A(mesh: Mesh, A):
     Returns ``(A_dev, Are, Aim)``."""
     import numpy as np
 
-    from ..utils.xfer import to_device_complex
-
     rdt, cdtype = _staging_dtypes()
     col_shard = NamedSharding(mesh, P(None, MODEL_AXIS))
     if not hasattr(A, "sharding"):
+        # host operand: every piece goes straight to its column shards, so
+        # no full-size copy is ever placed on one device
         A_host = np.asarray(A)
-        Are = jax.device_put(jnp.asarray(A_host.real.astype(rdt)), col_shard)
-        Aim = jax.device_put(jnp.asarray(A_host.imag.astype(rdt)), col_shard)
-        A = to_device_complex(A_host, cdtype)
+        Are = jax.device_put(A_host.real.astype(rdt), col_shard)
+        Aim = jax.device_put(A_host.imag.astype(rdt), col_shard)
+        A = jax.device_put(A_host.astype(cdtype), col_shard)
     else:
-        # already-on-device operand: ALL complex math stays jitted — eager
-        # .real/.imag/.astype on complex device arrays crash this TPU runtime
+        # already-on-device operand: one jitted program derives the pieces
         Are, Aim, A = jax.jit(
             lambda a: (a.real.astype(rdt), a.imag.astype(rdt),
                        a.astype(cdtype)),
@@ -307,16 +305,13 @@ def stage_b(mesh: Mesh, b):
     from the ORIGINAL data). Returns ``(b_dev, bre, bim)``."""
     import numpy as np
 
-    from ..utils.xfer import to_device_complex
-
     rdt, cdtype = _staging_dtypes()
     if not hasattr(b, "sharding"):
         b_host = np.asarray(b)
         bre = jnp.asarray(b_host.real.astype(rdt))
         bim = jnp.asarray(b_host.imag.astype(rdt))
-        b = to_device_complex(b_host, cdtype)
+        b = jnp.asarray(b_host.astype(cdtype))
     else:
-        # jitted for the same TPU eager-complex reason as stage_A
         bre, bim, b = jax.jit(
             lambda x: (x.real.astype(rdt), x.imag.astype(rdt),
                        x.astype(cdtype)))(b)

@@ -117,7 +117,7 @@ def _svd_iterate(mesh: Mesh, A: jax.Array, key: jax.Array, k: int,
 
         # ``iterations`` is an upper BOUND (the caller's max_iterations,
         # honored verbatim — no silent clamp): each round costs three psums,
-        # so iterating past convergence wastes ICI wall-clock. Patience-based
+        # so iterating past convergence wastes collective time. Patience-based
         # early exit, mirroring _eig_iterate (parallel/dist_hessenberg.py).
         eps = jnp.asarray(jnp.finfo(rdt).eps, rdt)
         # scaled local sum + psum of (scale, partial): the naive local sum of
@@ -179,7 +179,7 @@ def svd_distributed(mesh: Mesh, A, num_candidates: int = 8,
     """
     import numpy as np
 
-    from ..utils.xfer import to_device_complex
+    from ..core import backend
 
     mrows, n = A.shape[-2], A.shape[-1]
     m = mesh.shape[MODEL_AXIS]
@@ -188,10 +188,7 @@ def svd_distributed(mesh: Mesh, A, num_candidates: int = 8,
     k = min(num_candidates, mrows, n)
     col_shard = NamedSharding(mesh, P(None, MODEL_AXIS))
     if not hasattr(A, "sharding"):
-        use_c128 = jax.default_backend() == "cpu" and \
-            jax.config.jax_enable_x64
-        A = to_device_complex(np.asarray(A),
-                              jnp.complex128 if use_c128 else jnp.complex64)
+        A = np.asarray(A).astype(backend.default_complex_dtype())
     A = jax.device_put(A, col_shard)
 
     sigma, U, V, resid = _svd_iterate(mesh, A, jax.random.PRNGKey(seed), k,

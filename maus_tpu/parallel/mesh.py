@@ -1,13 +1,14 @@
 """Device mesh construction — the framework's distribution backbone (SURVEY.md §5.8).
 
-The reference has no distributed story at all (§2.3); the TPU-native design's two
+The reference has no distributed story at all (§2.3); this design's two
 parallel axes come from its *latent* parallelism:
 
 * ``replica`` — the candidate-population axis (the reference's per-candidate Python
   loop, AMS:574-576): embarrassingly parallel, sharded K-way.
 * ``model`` — the matrix dimension (large-N scaling): operands row-sharded so
-  matvec/GEMM work and A's memory footprint split across chips, with XLA inserting
-  the ICI collectives.
+  matvec/GEMM work and A's memory footprint split across devices, with XLA
+  inserting the collectives (NCCL over NVLink on GPUs, where every card
+  reaches every other at the same rate).
 
 Everything downstream is mesh-agnostic: on one device the same code runs with a
 trivial 1×1 mesh.
@@ -81,10 +82,11 @@ def initialize_distributed(**kwargs) -> None:
     ``jax.distributed.initialize`` so callers never import jax.distributed
     directly. No-ops when already initialized or running single-process.
 
-    On multi-slice deployments, build the mesh afterwards with
-    ``make_mesh(replica=n_slices, model=devices_per_slice)`` so the model axis
-    (heavy matvec collectives) stays within a slice's ICI and only the
-    replica-axis reductions (scalar landscape statistics) cross DCN.
+    On multi-host deployments, build the mesh afterwards with
+    ``make_mesh(replica=n_hosts, model=devices_per_host)`` so the model axis
+    (heavy matvec collectives) stays within a host's NVLink domain and only
+    the replica-axis reductions (scalar landscape statistics) cross the
+    network.
     """
     import jax
 

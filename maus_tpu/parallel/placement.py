@@ -2,7 +2,7 @@
 shardings so the jitted evolve loop runs GSPMD-distributed without code changes.
 
 The evolve loop itself is sharding-agnostic — XLA propagates the shardings below
-through every batched op and inserts ICI collectives (all-reduce for the masked
+through every batched op and inserts collectives (all-reduce for the masked
 population statistics, all-gather where the factorization needs full rows). The
 explicit shard_map kernels (``dist_qr``/``dist_hessenberg``/``dist_svd``/
 ``dist_refine``) take over where GSPMD cannot shard the factorization itself.

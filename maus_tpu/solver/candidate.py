@@ -216,7 +216,7 @@ def step_linear(cfg: SolverConfig, A: jax.Array, b: jax.Array, fac: LUFactors,
                 direct_solve=None) -> tuple[Population, StepStats]:
     """One population step for Ax=b.
 
-    TPU-native restructure: every candidate solves the *same* regularized system, so
+    Device-native restructure: every candidate solves the *same* regularized system, so
     the proposal x̂ is computed once (reusing the carried factorization — the
     reference refactorizes per candidate per iteration, AMS:224-225/59) and only the
     damped per-candidate mixing ``x_k ← (1−α_k)x_k + α_k x̂`` (AMS:284-285) plus the
@@ -479,7 +479,7 @@ def step_svd(cfg: SolverConfig, A: jax.Array, pop: Population,
 
     ``cfg.orthogonalize`` (default) runs the population as a **block**: one round
     of subspace iteration with a Rayleigh–Ritz rotation — two tall QRs and one
-    K×K SVD per step, all MXU-shaped. Per-candidate power iteration (the
+    K×K SVD per step, all GEMM-shaped. Per-candidate power iteration (the
     reference's literal update, AMS:233-242) converges at (σ_{i+1}/σ_i)² per
     step and stalls for thousands of iterations on clustered spectra (measured
     on a 2048×512 sparse operand with σ₁/σ₂ ≈ 0.996); the block converges at

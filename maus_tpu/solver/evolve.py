@@ -50,8 +50,8 @@ class EvolveCarry(NamedTuple):
     refactor_psi: jax.Array         # cfg.host_refactor mode only: non-zero ⇔
                                     # the loop exited asking the HOST to
                                     # rebuild the shared factorization at this
-                                    # Ψ (XLA scoped-VMEM cap forbids a ≥16k²
-                                    # QR inside lax.cond); 0.0 otherwise
+                                    # Ψ (backend.branch_memory_cap); 0.0
+                                    # otherwise
 
 
 class Metrics(NamedTuple):
@@ -123,9 +123,9 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge, A: jax.Array,
         lam_spread = anorm
 
     def iteration(carry: EvolveCarry) -> tuple[EvolveCarry, Metrics]:
-        # TPU's default matmul precision is bf16-grade: fine for neural nets,
-        # fatal for residual measurement (observed floor ~4e-3). All solver
-        # math runs at full f32 MXU precision.
+        # A reduced-precision default (TF32 for f32/c64 products on the GPU)
+        # is fatal for residual measurement. All solver math runs at full
+        # f32 precision.
         with jax.default_matmul_precision("highest"):
             return _iteration_impl(carry)
 
@@ -301,8 +301,7 @@ def make_iteration(cfg: SolverConfig, knowledge: ProblemKnowledge, A: jax.Array,
 def init_carry(cfg: SolverConfig, knowledge: ProblemKnowledge, A: jax.Array,
                key: jax.Array, mesh=None, dist_block: int = 128
                ) -> EvolveCarry:
-    # jitted: population init runs eager complex ops otherwise, which this
-    # TPU runtime cannot execute outside a compiled program
+    # jitted: population init is one program instead of many eager ops
     with jax.default_matmul_precision("highest"):
         return _init_carry_impl(cfg, knowledge, A, key, mesh, dist_block)
 

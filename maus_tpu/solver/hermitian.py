@@ -6,7 +6,7 @@ eigenpair most similar to its own vector. Because its init vectors are non-zero-
 the whole population snaps onto 1-2 low-frequency eigenpairs (SURVEY.md §0.1 —
 measured 2/8 coverage forever).
 
-TPU-native rebuild:
+Device-native rebuild:
 
 * ONE shared ``jnp.linalg.eigh`` at setup (XLA batched QR/eigh on device);
 * per-candidate snap = one (K, N) × (N, N) similarity GEMM + masked argmax;

@@ -7,9 +7,8 @@ leaf dump and resume is re-entering the jitted loop with the loaded carry.
 
 Format: a single ``.npz`` with positional leaf arrays — no pickling. Complex
 leaves are stored as separate real/imag float planes (``leaf_XXXX_re`` /
-``leaf_XXXX_im``): this TPU runtime cannot move complex dtypes across the host
-boundary in either direction (probed; see :mod:`maus_tpu.utils.xfer`), so both
-save and load route complex data through the split-plane shim. Loading requires
+``leaf_XXXX_im``), and both save and load route complex data through
+:mod:`maus_tpu.utils.xfer`. Loading requires
 a structural template (built by ``init_carry`` from the same config), which
 doubles as a schema check: leaf count, shape, or dtype mismatches fail loudly
 instead of resuming garbage.
@@ -38,11 +37,10 @@ def _restore_leaf(got_host, want, want_dtype, is_complex: bool):
       with that sharding: placement slices host-side per shard, so no single
       device ever materializes the full leaf (a resumed mesh carry's factors
       may not fit one device — that is the memory scaling the mesh exists
-      for). Multi-device shardings exist only on the CPU backend on this
-      runtime, where complex host transfers are allowed.
+      for).
     * single-device templates stay UNCOMMITTED (committing them would make
       jit reject mixing them with mesh-sharded operands) and complex leaves
-      go through the TPU-safe split-plane shim.
+      go through :mod:`maus_tpu.utils.xfer`.
     """
     sharding = getattr(want, "sharding", None)
     if sharding is not None and len(sharding.device_set) > 1:

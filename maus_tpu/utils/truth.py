@@ -2,8 +2,8 @@
 checking, AMS:554-570 and AMS:597-608 — fixed: the reference's SVD truth path
 crashes unpacking 1-tuples, SURVEY.md §0.1).
 
-Runs on host numpy in float64: nonsymmetric ``eigvals`` has no TPU lowering, and
-O(N³) LAPACK oracle work belongs off the accelerator anyway. Used by tests, the
+Runs on host numpy in float64: nonsymmetric ``eigvals`` lowers on the CPU
+only, and O(N³) LAPACK oracle work belongs off the accelerator anyway. Used by tests, the
 CLI's ``--check`` flag, and anyone wanting the reference's "error vs LAPACK"
 readout as data.
 """

@@ -1,6 +1,6 @@
 """Island-model AGE (age/islands.py): sharded stage-III evaluation + ring
 migration. The reference's AGE is strictly single-population (SURVEY.md §2.3);
-this is the TPU-scale extension — semantics per island stay the reference's."""
+this is the multi-device extension — semantics per island stay the reference's."""
 import numpy as np
 import pytest
 

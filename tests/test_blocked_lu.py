@@ -1,6 +1,6 @@
 """Blocked partially-pivoted LU (ops/blocked_lu.py) vs dense oracles.
 
-Reference parity: the LU is the TPU equivalent of the reference's dense
+Reference parity: the LU is the device equivalent of the reference's dense
 direct path (LAPACK getrf/getrs behind ``sla.solve``,
 Adaptive_Matrix_Solver_0.1.py:59).
 """
@@ -89,8 +89,8 @@ def test_pivoting_engages_on_adversarial_operand():
 
 
 def test_backward_error_illconditioned():
-    # kappa=1e10 in f64: backward error must stay ~machine-eps-grade — this
-    # is the property XLA:TPU's own LU loses (bf16-grade internal updates)
+    # kappa=1e10 in f64: backward error must stay ~machine-eps-grade, the
+    # property a reduced-precision internal update would lose
     n = 200
     A = _rand(n, "float64", seed=11, cond=1e10)
     rng = np.random.default_rng(12)

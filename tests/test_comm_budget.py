@@ -128,8 +128,8 @@ class TestDistHessenberg:
 # ---------------------------------------------------------------------------
 # dist_hess_solve: per forward step one (K,) psum + one scalar psum; per
 # backward step two (K,) psums; one final (K, N) psum
-#   ⇒ O(K·N) per sweep (dist_hessenberg.py:22-27 "only the per-column pivot
-#     pair crosses the ICI per step")
+#   ⇒ O(K·N) per sweep (dist_hessenberg.py's docstring: "only the
+#     per-column pivot pair ... crosses the interconnect per step")
 # ---------------------------------------------------------------------------
 
 class TestDistHessSolve:

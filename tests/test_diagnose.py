@@ -41,7 +41,7 @@ def _controlled_kappa(n: int, kappa: float, seed: int = 0) -> np.ndarray:
 
 
 class TestCondDevice:
-    """On-device condition probe (c64 compute, like the TPU path)."""
+    """On-device condition probe (c64 compute, like the GPU path)."""
 
     def test_moderate_kappa_accurate(self):
         import jax.numpy as jnp

@@ -1,8 +1,8 @@
 """Distributed (column-sharded) Hessenberg reduction, shifted solves, and the
 distributed eig entry point on the 8-device CPU mesh — the eig-path
-counterpart of test_dist_qr.py (STATUS.md round-2 gap 3).
+counterpart of test_dist_qr.py.
 
-The compute dtype is complex64 where the TPU path is exercised; reduction /
+The compute dtype is complex64 where the GPU path is exercised; reduction /
 solve identities are also checked in complex128 against host LAPACK oracles.
 """
 import numpy as np
@@ -88,7 +88,7 @@ class TestDistHessenberg:
             assert err < 1e-10, (k, err)
 
     def test_shifted_solve_c64(self, mesh):
-        """The TPU dtype path: c64 factors, c64 rhs, ~1e-5 accuracy."""
+        """The GPU dtype path: c64 factors, c64 rhs, ~1e-5 accuracy."""
         A = _matrix(4)
         hess = dist_hessenberg(mesh, _place(mesh, A, jnp.complex64))
         H = np.asarray(hess.h, dtype=np.complex128)

@@ -1,5 +1,5 @@
 """Distributed QR factorization + solve (VERDICT r1 #3) on the 8-device CPU
-mesh. The compute dtype is deliberately complex64 (the TPU path); oracles are
+mesh. The compute dtype is deliberately complex64 (the GPU path); oracles are
 f64 host LAPACK."""
 import numpy as np
 import pytest

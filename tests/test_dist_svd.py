@@ -1,5 +1,5 @@
 """Distributed (column-sharded) SVD on the 8-device CPU mesh — the SVD-path
-counterpart of test_dist_qr.py / test_dist_hessenberg.py (STATUS.md round-2
+counterpart of test_dist_qr.py / test_dist_hessenberg.py (round-2
 gap: "Distributed SVD not yet built").
 
 Checks: Ritz σ against the LAPACK spectrum, two-sided triplet residuals

@@ -80,7 +80,7 @@ class TestShiftedSolve:
 
 class TestBlockedReduction:
     """Compact-WY panel reduction (reduce_hessenberg_blocked) — the large-N
-    upgrade of the per-column scan (measured 3.7× at N=4096 on v5e)."""
+    upgrade of the per-column scan."""
 
     def _check(self, n, nb, tol=1e-12):
         from maus_tpu.ops.hessenberg import reduce_hessenberg_blocked
@@ -129,9 +129,9 @@ class TestBlockedReduction:
 
 class TestCandidateChunking:
     def test_chunked_matches_single_batch(self, monkeypatch):
-        """Past _HESS_SOLVE_TEMP_CAP the sweep runs candidate-chunked under
-        lax.map (the single-batch scan carries 2·K·N² of temps — 34 GiB at
-        the 8192²/K=32 eig config, a driver-captured compile OOM). The
+        """Past the single-batch temp cap (_hess_solve_budgets) the sweep
+        runs candidate-chunked under lax.map (the single-batch scan carries
+        2·K·N² of temps — 34 GiB at the 8192²/K=32 eig config). The
         chunked result must be BIT-identical: same scan body, same order,
         only the batching changes. Covers uneven K (pad duplicates the last
         candidate, then slices off) and the psi operand."""
@@ -147,9 +147,8 @@ class TestCandidateChunking:
                          + 1j * rng.standard_normal((K, n))).astype(np.complex64))
         psi = jnp.asarray(np.full(K, 1e-4, np.float32))
         x_ref = np.asarray(solve_shifted_via_hessenberg(cache, lams, B, psi))
-        monkeypatch.setattr(hz, "_HESS_SOLVE_TEMP_CAP", 1)
-        monkeypatch.setattr(hz, "_HESS_SOLVE_CHUNK_BUDGET",
-                            3 * 2 * n * n * 8)          # kc=3: 7 pads to 9
+        monkeypatch.setattr(hz, "_hess_solve_budgets",
+                            lambda: (1, 3 * 2 * n * n * 8))  # kc=3: 7 pads to 9
         hz.solve_shifted_hessenberg._clear_cache()
         x_chunk = np.asarray(solve_shifted_via_hessenberg(cache, lams, B, psi))
         hz.solve_shifted_hessenberg._clear_cache()

@@ -1,8 +1,9 @@
 """Host-mediated refactorization mode (``SolverConfig.host_refactor``).
 
-At N ≥ ~16k the shared-factorization QR no longer compiles inside the evolve
-loop's ``lax.cond`` (XLA TPU caps conditional branches at 16 MB scoped VMEM),
-while the identical QR compiles fine at program top level. In host mode the
+For a backend whose compiler caps a conditional branch's scratch memory
+(``backend.branch_memory_cap``), a large shared-factorization QR does not
+compile inside the evolve loop's ``lax.cond`` while the identical QR
+compiles at program top level. In host mode the
 loop exits with ``carry.refactor_psi`` set instead of refactorizing in-program;
 the api driver rebuilds the factorization in a standalone program and
 re-enters. These tests pin the two contracts:
@@ -158,8 +159,7 @@ def test_fac_all_finite_gate():
 
 
 def test_nan_cholesky_carry_never_seeds_refinement():
-    """Declared-HPD operand with an indefinite defect (found by
-    benchmarks/handoff_probe.py): the evolve carry can exit with frustration
+    """Declared-HPD operand with an indefinite defect: the evolve carry can exit with frustration
     decayed to 0 while holding NaN Cholesky factors — seeding those into
     _fac_cache made IR/GMRES-IR silently return inf. The gate must reject
     them, refinement must fall back to a fresh QR, and (the user-visible
@@ -216,8 +216,7 @@ def test_nan_cholesky_carry_never_seeds_refinement():
 def test_hoisted_hessenberg_parity(monkeypatch, collect_metrics):
     """Large-N eig hoists the shared Hessenberg reduction into a standalone
     program (api._host_hessenberg_program) and feeds it to the evolve loop as
-    data — traced inside the loop program, the 16384² blocked reduction
-    faults the TPU worker (benchmarks/results/r5/spectral16k_try5.log). The
+    data, so its temps are not stacked on the loop program's. The
     hoisted run must find the same eigenpairs as the fused-construction run
     on the same seeds, and the cache must actually be built and reused."""
     rng = np.random.default_rng(7)

@@ -219,9 +219,8 @@ class TestMeshSolverStaging:
         np.testing.assert_array_equal(np.asarray(s._stA[1].re), A2.real)
 
     def test_stage_device_arrays(self, mesh):
-        """stage_A / stage_b accept already-on-device complex arrays (the
-        derivation is jitted — eager .real/.imag on complex device arrays
-        crash the TPU runtime) and produce correct sharded planes."""
+        """stage_A / stage_b accept already-on-device complex arrays (one
+        jitted derivation) and produce correct sharded planes."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         from maus_tpu.parallel.dist_qr import stage_A, stage_b

@@ -6,7 +6,7 @@ tolerance contract (AMS:25/341) that the single-chip paths honor.
 
 Runs on the 8-virtual-device CPU mesh (conftest). The c64-forced tests are
 the genuine mixed-precision check: compute at the c64 floor (~1e-6 relative),
-finish to f64 residuals — the same lift the TPU path performs.
+finish to f64 residuals — the same lift the GPU path performs.
 """
 import jax
 import jax.numpy as jnp

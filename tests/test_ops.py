@@ -147,7 +147,7 @@ class TestRefine:
 class TestGMRESIR:
     def test_gmres_ir_beats_plain_ir_at_high_kappa(self):
         """κ where c64-preconditioned plain IR stalls: GMRES-IR must still reach
-        near-f64 residuals (the gap-#3 fallback, docs/STATUS.md)."""
+        near-f64 residuals (the gap-#3 fallback)."""
         from maus_tpu.problems import generators as gen
         n, kappa = 192, 3e7
         A128, b128 = gen.ill_conditioned_system(n, cond=kappa, seed=2)

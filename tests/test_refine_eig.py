@@ -1,6 +1,6 @@
 """Mixed-precision eig/SVD finishers (VERDICT r1 #2).
 
-All inputs are deliberately complex64 — the TPU compute dtype — while truth and
+All inputs are deliberately complex64 — the GPU compute dtype — while truth and
 residuals are f64: these tests exercise exactly the precision gap the finishers
 exist to close (c64 floor ≈ √N·ε_f32 → tol 1e-8)."""
 import jax
@@ -160,7 +160,7 @@ class TestSvdNewton:
 
 class TestApiEngagement:
     def test_eig_c64_reaches_1e8(self):
-        """End-to-end in the TPU compute dtype: the evolve loop accepts at the
+        """End-to-end in the GPU compute dtype: the evolve loop accepts at the
         c64 floor, the finisher must deliver residuals ≤ 1e-8 in the report."""
         from maus_tpu.problems import generators as gen
 

@@ -1,11 +1,11 @@
-"""Exact-slicing (Ozaki-scheme) residual: the TPU replacement for emulated-f64
-residual GEMVs in iterative refinement (ops/refine.py::SlicedMatrix).
+"""Exact-slicing (Ozaki-scheme) residual: the f64 residual from bf16 slice
+GEMMs for a backend without native f64 (ops/refine.py::SlicedMatrix).
 
 Correctness contract: r = b − A x computed through bf16 slice GEMMs must match
 the f64 oracle to f64-ADDITION roundoff (the scheme's products and in-GEMM
 accumulations are exact by construction), across scale extremes and operand
-shapes. These tests drive the slicing machinery directly on the CPU backend —
-on TPU it is exercised by the tpu-marked tier and the 4096² bench.
+shapes. These tests drive the slicing machinery directly on the CPU backend;
+no supported platform dispatches to it (ROADMAP D2).
 """
 import numpy as np
 import pytest
@@ -58,7 +58,7 @@ def test_slice_reconstruction_exact():
 
 
 def test_extract_ladder_f32_tail_bound():
-    """The accelerator-default f32 tail (STATUS r3 gap 3): after two wide f64
+    """The f32 tail (the default where f64 is not native): after two wide f64
     passes the remainder is cast to f32, adding ≤ 2^-55·σ absolute error —
     below the ladder's 2^-53·σ truncation contract. The first 30 bits (slices
     0-5) must be bit-identical to the exact extraction."""
@@ -290,105 +290,13 @@ class TestStreamedSlicedResidual:
             assert np.max(np.abs(rf - r_ref)) < 1e-15 * scale, panels
 
 
-class TestFusedSliceResidual:
-    """In-VMEM fused extraction+dot kernel (ops/pallas/slice_residual.py):
-    exact triple split, digit-grid-exact residual, interpret mode on CPU."""
-
-    def test_triple_split_exact(self):
-        from maus_tpu.ops.pallas.slice_residual import split_triple
-        rng = np.random.default_rng(3)
-        n = 64
-        A = (rng.standard_normal((n, n)) * np.exp(
-            rng.uniform(-30, 30, (n, n)))) \
-            + 1j * (rng.standard_normal((n, n)) * np.exp(
-                rng.uniform(-30, 30, (n, n))))
-        tri = jax.jit(split_triple)(_sc(A))
-        for plane, ref in ((tri.re, A.real), (tri.im, A.imag)):
-            hi, mid, lo = (np.asarray(t, np.float64) for t in plane)
-            # hi + mid + lo == plane BITWISE (72 bits >= 53, exact splits)
-            np.testing.assert_array_equal(hi + mid + lo, ref)
-            assert np.max(np.abs(mid)) <= 2.0 ** -24 * np.max(np.abs(ref))
-
-    @pytest.mark.parametrize("ascale,xscale", [(1.0, 1.0), (1e-3, 1e5),
-                                               (1e7, 1e-6)])
-    def test_matches_oracle_and_dense(self, ascale, xscale):
-        from maus_tpu.ops.pallas.slice_residual import (sliced_residual_fused,
-                                                        split_triple)
-        rng = np.random.default_rng(4)
-        m = n = 256
-        A = ((rng.standard_normal((m, n)) * np.exp(
-            rng.uniform(-12, 12, (m, n)))) + 1j * rng.standard_normal(
-                (m, n))) * ascale
-        x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * xscale
-        b = A @ x * (1 + 1e-13)
-        tri = jax.jit(split_triple)(_sc(A))
-        r = sliced_residual_fused(tri, _sc(x), _sc(b), tile_m=128,
-                                  tile_k=128, interpret=True)
-        rf = np.asarray(r.re) + 1j * np.asarray(r.im)
-        r_ref = b - A @ x
-        scale = np.linalg.norm(A) * np.linalg.norm(x)
-        assert np.max(np.abs(rf - r_ref)) < 1e-15 * scale
-        sp = jax.jit(slice_split_matrix)(_sc(A))
-        rd = jax.jit(_sliced_residual)(sp, _sc(x), _sc(b))
-        rdn = np.asarray(rd.re) + 1j * np.asarray(rd.im)
-        # both are digit-grid-exact: agreement to f64-accumulation roundoff
-        assert np.max(np.abs(rf - rdn)) < 1e-16 * scale
-
-    def test_fused_ok_gate(self):
-        from maus_tpu.ops.pallas.slice_residual import fused_ok
-        assert fused_ok((4096, 4096), backend="tpu")
-        assert fused_ok((8192, 8192), backend="tpu")
-        assert not fused_ok((4096, 4096), backend="cpu")
-        assert not fused_ok((4100, 4096), backend="tpu")   # not tileable
-        assert not fused_ok((32768, 32768), backend="tpu")  # f32-exact bound
-
-    def test_c64exact_triple(self):
-        """split_triple_c64: hi IS the operand's f32 plane, mid/lo absent."""
-        from maus_tpu.ops.pallas.slice_residual import split_triple_c64
-        rng = np.random.default_rng(5)
-        n = 64
-        A = (rng.standard_normal((n, n))
-             + 1j * rng.standard_normal((n, n))).astype(np.complex64)
-        tri = jax.jit(split_triple_c64)(jnp.asarray(A))
-        assert tri.re.mid is None and tri.re.lo is None
-        np.testing.assert_array_equal(np.asarray(tri.re.hi), A.real)
-        np.testing.assert_array_equal(np.asarray(tri.im.hi), A.imag)
-        sig = float(tri.sigma)
-        assert sig >= max(np.abs(A.real).max(), np.abs(A.imag).max())
-        assert np.log2(sig) == round(np.log2(sig))     # power of two
-
-    @pytest.mark.parametrize("xscale", [1.0, 1e5, 1e-6])
-    def test_c64exact_matches_full_triple(self, xscale):
-        """Hi-only kernel == full-triple kernel == f64 oracle when the operand
-        is c64-exact (the mid/lo digit planes are identically zero then)."""
-        from maus_tpu.ops.pallas.slice_residual import (
-            sliced_residual_fused, split_triple, split_triple_c64)
-        rng = np.random.default_rng(6)
-        m = n = 256
-        Ac = ((rng.standard_normal((m, n)) * np.exp(
-            rng.uniform(-12, 12, (m, n)))) + 1j * rng.standard_normal(
-                (m, n))).astype(np.complex64)
-        A = Ac.astype(np.complex128)                   # exact widening
-        x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * xscale
-        b = A @ x * (1 + 1e-13)
-        tri1 = jax.jit(split_triple_c64)(jnp.asarray(Ac))
-        r1 = sliced_residual_fused(tri1, _sc(x), _sc(b), tile_m=128,
-                                   tile_k=128, interpret=True)
-        tri3 = jax.jit(split_triple)(_sc(A))
-        r3 = sliced_residual_fused(tri3, _sc(x), _sc(b), tile_m=128,
-                                   tile_k=128, interpret=True)
-        rf1 = np.asarray(r1.re) + 1j * np.asarray(r1.im)
-        rf3 = np.asarray(r3.re) + 1j * np.asarray(r3.im)
-        scale = np.linalg.norm(A) * max(np.linalg.norm(x), 1e-300)
-        # same digit grid, same partials (mid/lo contribute exact zeros):
-        # only the f64 accumulation order differs
-        assert np.max(np.abs(rf1 - rf3)) < 1e-16 * scale
-        r_ref = b - A @ x
-        assert np.max(np.abs(rf1 - r_ref)) < 1e-15 * scale
+class TestC64ExactRefine:
+    """refine_split_c64exact: refinement of a c64-exact operand, with the f64
+    planes widened inside the program and A itself as the matvec copy."""
 
     def test_refine_split_c64exact_cpu_fallback(self):
-        """On CPU the c64-exact entry falls back to the widened-plane path and
-        still refines to f64 accuracy."""
+        """The c64-exact entry refines through the widened-plane native-f64
+        residual to f64 accuracy."""
         from maus_tpu.ops.batched_solve import factor_qr
         from maus_tpu.ops.refine import refine_split_c64exact
         rng = np.random.default_rng(7)
@@ -406,12 +314,9 @@ class TestFusedSliceResidual:
         assert float(rel) < 1e-12
 
     def test_refine_with_fac_planes_matches_complex(self):
-        """FacPlanes (f32/f64 plane pairs recombined inside the jit) is the
-        large-N memory form of the factors — on this TPU backend a complex64
-        jit argument is materialized twice (argument + in-program X64Split
-        plane temps), which alone pushed the 16384² refine program to
-        16.04/15.75 GB. The planes path must be numerically IDENTICAL: the
-        lax.complex recombination folds, it does not round."""
+        """FacPlanes (f32/f64 plane pairs recombined inside the jit) is an
+        accepted form of the factors. The planes path must be numerically
+        IDENTICAL: the lax.complex recombination folds, it does not round."""
         from maus_tpu.ops.batched_solve import factor_qr
         from maus_tpu.ops.refine import fac_to_planes, refine_split_c64exact
         rng = np.random.default_rng(11)

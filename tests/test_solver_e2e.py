@@ -237,7 +237,7 @@ class TestBaselineConfigs:
 
     def test_rectangular_sparse_csc_svd(self):
         """Config 5 (shrunk for CPU): rectangular sparse-CSC input maps to the
-        dense TPU layout and SVD mode finds the dominant triplets."""
+        dense device layout and SVD mode finds the dominant triplets."""
         sp = pytest.importorskip("scipy.sparse")
         rng = np.random.default_rng(11)
         A_sp = sp.random(128, 32, density=0.08, random_state=rng,

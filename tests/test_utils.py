@@ -141,8 +141,8 @@ class TestCheckpoint:
             checkpoint.load_state(path, {"z": np.zeros(3, np.complex64)})
 
     def test_complex_leaves_stored_as_split_planes(self, tmp_path):
-        """Complex leaves must never hit np.asarray directly (the TPU host
-        boundary can't move complex dtypes) — the file stores re/im planes."""
+        """Complex leaves go through utils/xfer — the file stores re/im
+        planes."""
         path = str(tmp_path / "cplx.npz")
         z = (np.arange(6, dtype=np.float64)
              + 1j * np.arange(6, dtype=np.float64)).reshape(2, 3)
@@ -281,15 +281,19 @@ class TestCLIMore:
 
 class TestRefineChunkSizing:
     """_refine_chunk bounds the spectral-refinement batch by its
-    factorization workspace (~2 GiB of CH·N² shifted systems; halved in the
-    accelerator QR regime where Q and R double per-candidate storage). The
-    scoped-VMEM hazards of XLA:TPU's complex LU (batched: fixed ~16.55 MB
-    pivot panel at any batch size, probed at batch 8/4/3 N=4096; unbatched:
-    20.04M at N=8192) are NOT chunking problems:
+    factorization workspace (a share of device memory in CH·N² shifted
+    systems; halved in the branch-memory-cap QR regime where Q and R double
+    per-candidate storage). Under such a cap
     refine_eig._percand_shifted_solver switches transport (vmap LU →
-    lax.map LU → lax.map QR) past the probed limits instead."""
+    lax.map LU → lax.map QR) instead of chunking."""
 
-    def _solver_with_shape(self, n):
+    # device memory at which the workspace share is 2 GiB
+    _MEM = int((2 << 30) / maus_tpu.MausSolver._REFINE_CHUNK_SHARE) + 1
+
+    def _solver_with_shape(self, n, monkeypatch):
+        from maus_tpu.core import backend
+        monkeypatch.setattr(backend, "device_memory_bytes",
+                            lambda: self._MEM)
         A, b = gen.well_conditioned_system(16, seed=0)
         s = maus_tpu.MausSolver(A, ProblemType.SOLVE_LINEAR_SYSTEM,
                                 b_vector=b, initial_num_candidates=4)
@@ -299,23 +303,25 @@ class TestRefineChunkSizing:
 
     @pytest.mark.parametrize("n,expect", [(2048, 8), (4096, 8),
                                           (8192, 2), (16384, 1)])
-    def test_workspace_rule(self, n, expect):
-        # CPU x64 → c128 factors (itemsize 16); accelerator c64 doubles these
-        s = self._solver_with_shape(n)
+    def test_workspace_rule(self, n, expect, monkeypatch):
+        # CPU x64 → c128 factors (itemsize 16); c64 doubles these
+        s = self._solver_with_shape(n, monkeypatch)
         assert s._refine_chunk() == expect
 
     def test_qr_regime_halves_budget(self, monkeypatch):
-        from maus_tpu.solver import api as api_mod
-        s = self._solver_with_shape(8192)
-        base = s._refine_chunk()             # CPU: full 2 GiB budget
-        monkeypatch.setattr(api_mod.jax, "default_backend", lambda: "tpu")
+        from maus_tpu.core import backend
+        s = self._solver_with_shape(8192, monkeypatch)
+        base = s._refine_chunk()             # no cap: full 2 GiB budget
+        monkeypatch.setattr(backend, "branch_memory_cap", lambda: True)
         assert s._refine_chunk() == max(base // 2, 1)   # QR regime: halved
 
     def test_percand_solver_regimes(self, monkeypatch):
-        """Transport selection: vmap LU on CPU/small N, lax.map LU to 4096,
-        lax.map QR above — pinned via a counting lax.map stub."""
+        """Transport selection under a branch memory cap: vmap LU at small N,
+        lax.map LU to 4096, lax.map QR above — pinned via a counting lax.map
+        stub."""
         import jax
 
+        from maus_tpu.core import backend
         from maus_tpu.ops import refine_eig as re_mod
         calls = []
 
@@ -324,7 +330,7 @@ class TestRefineChunkSizing:
         def fake_map(f, xs):
             calls.append("map")
             return real_map(f, xs)
-        monkeypatch.setattr(re_mod.jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(backend, "branch_memory_cap", lambda: True)
         monkeypatch.setattr(re_mod.jax.lax, "map", fake_map)
         rng = np.random.default_rng(0)
         H = rng.standard_normal((8, 8)) + 8 * np.eye(8)
